@@ -7,9 +7,14 @@ carry the flax names, so only the leaves change:
 
 - conv kernel HWIO → `weight` OIHW;
 - Dense kernel [in, out] → `Linear.weight` [out, in];
-- GroupedPointwise kernel [G, in, out] stays `kernel`, as it is;
+- GroupedPointwise kernel [G, in, out] and UpsampleBilinear kernel
+  [2f, 2f, C] stay `kernel`, as they are;
 - LayerNorm/BatchNorm `scale` → `weight`; BatchNorm `mean`/`var` →
-  `running_mean`/`running_var`.
+  `running_mean`/`running_var`;
+- Embed `embedding` [N, D] → `Embedding.weight`, as it is.
+
+Other leaves (biases, LORE's std-norm `*_alpha`/`*_bias`) carry over as
+they are.
 
 A missing key, an unused key or a shape mismatch raises.
 """
@@ -41,7 +46,7 @@ def _param_leaf(name: str, value: np.ndarray):
         leaf, t = "weight", t.permute(3, 2, 0, 1)
     elif leaf == "kernel" and t.ndim == 2:        # Dense [in, out]
         leaf, t = "weight", t.t()
-    elif leaf == "scale":
+    elif leaf in ("scale", "embedding"):
         leaf = "weight"
     return (f"{path}.{leaf}" if path else leaf), t.contiguous()
 

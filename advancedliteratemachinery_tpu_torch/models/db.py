@@ -22,23 +22,8 @@ import torch.nn.functional as F
 from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy)
-from advancedliteratemachinery_tpu_torch.models.layers import init_params
-
-BN_EPS = 1e-5   # flax nn.BatchNorm default
-
-
-def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype
-          ) -> torch.Tensor:
-    b = conv.bias.to(dtype) if conv.bias is not None else None
-    return F.conv2d(x.to(dtype), conv.weight.to(dtype), b, conv.stride,
-                    conv.padding)
-
-
-def _bn(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Eval-mode BatchNorm in float32 on running statistics."""
-    return F.batch_norm(x.float(), bn.running_mean.float(),
-                        bn.running_var.float(), bn.weight.float(),
-                        bn.bias.float(), False, 0.0, bn.eps)
+from advancedliteratemachinery_tpu_torch.models.layers import (
+    BN_EPS, batch_norm, conv2d, init_params)
 
 
 class ConvBNRelu(nn.Module):
@@ -57,7 +42,7 @@ class ConvBNRelu(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.policy.compute_dtype
-        x = _bn(_conv(x, self.conv, c), self.bn).to(c)
+        x = batch_norm(conv2d(x, self.conv, c), self.bn).to(c)
         return F.relu(x) if self.relu else x
 
 
@@ -131,7 +116,7 @@ class DBDetector(nn.Module):
                 x = getattr(self, f"layer{s}_{b}")(x)
             feats.append(x)                   # strides 4, 8, 16, 32
 
-        lat = [_conv(f, getattr(self, f"lat{i}"), c)
+        lat = [conv2d(f, getattr(self, f"lat{i}"), c)
                for i, f in enumerate(feats)]
         for i in range(2, -1, -1):             # top-down sum
             lat[i] = lat[i] + F.interpolate(lat[i + 1],
@@ -140,12 +125,12 @@ class DBDetector(nn.Module):
         size = lat[0].shape[-2:]
         outs = []
         for i, l in enumerate(lat):
-            o = _conv(l, getattr(self, f"smooth{i}"), c)
+            o = conv2d(l, getattr(self, f"smooth{i}"), c)
             if o.shape[-2:] != size:
                 o = F.interpolate(o, size=size, mode="nearest")
             outs.append(o)
         h = self.prob_c(torch.cat(outs, dim=1))          # [B, 4*hd, H/4, W/4]
-        h = F.pixel_shuffle(_conv(h, self.prob_up1, c), 2)        # 1/4 → 1/2
-        h = F.relu(_bn(h, self.prob_bn1).to(c))
-        h = F.pixel_shuffle(_conv(h, self.prob_up2, c), 2)       # full, 1ch
+        h = F.pixel_shuffle(conv2d(h, self.prob_up1, c), 2)        # 1/4 → 1/2
+        h = F.relu(batch_norm(h, self.prob_bn1).to(c))
+        h = F.pixel_shuffle(conv2d(h, self.prob_up2, c), 2)       # full, 1ch
         return {"prob": torch.sigmoid(h.float()).permute(0, 2, 3, 1)}

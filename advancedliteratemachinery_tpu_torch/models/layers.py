@@ -23,6 +23,7 @@ from advancedliteratemachinery_tpu_torch.ops.attention import (
     fused_qkv_attention)
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
+BN_EPS = 1e-5   # flax nn.BatchNorm default
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,
@@ -55,6 +56,21 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
             with torch.no_grad():
                 nn.init.trunc_normal_(p, 0.0, 0.02, -0.04, 0.04,
                                       generator=generator)
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """flax Conv(dtype=...): input, kernel and bias in `dtype` (NCHW)."""
+    b = conv.bias.to(dtype) if conv.bias is not None else None
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), b, conv.stride,
+                    conv.padding)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Eval-mode BatchNorm in float32 on running statistics (NCHW)."""
+    return F.batch_norm(x.float(), bn.running_mean.float(),
+                        bn.running_var.float(), bn.weight.float(),
+                        bn.bias.float(), False, 0.0, bn.eps)
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype

@@ -27,6 +27,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = {
+    "deform_conv": "deform_conv.cu",
     "fused_qkv_attention": "fused_qkv_attention.cu",
     "vocab_greedy_decode": "vocab_greedy_decode.cu",
 }

@@ -16,16 +16,27 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 4. recognition only: MGP-STR-base at full width and depth (D=768, 12
    layers) with seeded random weights, B=256 crops/s and B=1 latency, an
    encoder check against a float32 run on the CPU, and `recognize()`;
-5. end-to-end spotting, the main path: P=8 uint8 pages of 640² → DB →
-   box extraction → crop_rects → MGP-STR-base → greedy decode, with the
-   page copy to the card inside the timed loop, as `bench.py`'s spotting
-   stage; extraction is checked against the CPU on one page, and a
+5. end-to-end spotting, the first slice's main path: P=8 uint8 pages of
+   640² → DB → box extraction → crop_rects → MGP-STR-base → greedy decode,
+   with the page copy to the card inside the timed loop, as `bench.py`'s
+   spotting stage; extraction is checked against the CPU on one page, and a
    torch.profiler trace of three more steps gives device time by kernel and
-   the device's idle share.
+   the device's idle share;
+6. modulated deformable conv kernel against its plain version, at the
+   seven layer shapes of LORE's DLA neck at B=8 and 768² pages, at odd
+   shapes (pixels, Cin and Cout off every tile) and with offsets of ±40 px,
+   samples wholly outside the image, a zero mask and offsets beyond ±3;
+7. LORE-TSR table structure, the second slice's main path: the full
+   `LoreConfig()` (DLA-34 + DCN neck, six heads, Processor 4+4 layers) in
+   bf16 with seeded random weights and its offset/mask convs re-seeded away
+   from zero, `LORE.infer` on B=8 f32 pages of 768² as `bench.py`'s
+   lore_tsr stage; head maps of one 256² page are checked against a float32
+   run of the same weights on the CPU, with stage times and a profile.
 
-Launch counts are zeroed just before each recognizer path and read just
-after: every recognizer forward must launch the attention kernel 12 times
-and the vocab kernel twice. Every time printed is this card's own, taken
+Launch counts are zeroed just before each main path and read just after:
+every recognizer forward must launch the attention kernel 12 times and the
+vocab kernel twice, every LORE forward the deformable conv kernel 16
+times and nothing else. Every time printed is this card's own, taken
 with CUDA events or, end to end, with the host clock after a synchronize.
 The second-to-last line is one JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.
@@ -45,6 +56,7 @@ from advancedliteratemachinery_tpu_torch.codecs.char_codec import CharCodec
 from advancedliteratemachinery_tpu_torch.core.precision import FP32_POLICY
 from advancedliteratemachinery_tpu_torch.engine.infer import MGPSTRInference
 from advancedliteratemachinery_tpu_torch.models.db import DBConfig, DBDetector
+from advancedliteratemachinery_tpu_torch.models.lore import LORE, LoreConfig
 from advancedliteratemachinery_tpu_torch.models.mgp_str import (
     MGPSTR, MGPSTRConfig)
 from advancedliteratemachinery_tpu_torch.ops import _kernels
@@ -52,6 +64,8 @@ from advancedliteratemachinery_tpu_torch.ops.attention import (
     fused_qkv_attention, fused_qkv_attention_plain)
 from advancedliteratemachinery_tpu_torch.ops.cc_extract import (
     extract_boxes_device)
+from advancedliteratemachinery_tpu_torch.ops.deform_conv import (
+    DeformConv2d, deform_conv2d, deform_conv2d_plain)
 from advancedliteratemachinery_tpu_torch.ops.image import (
     crop_rects, normalize_crops)
 from advancedliteratemachinery_tpu_torch.ops.vocab_decode import (
@@ -65,9 +79,22 @@ K1_TOL = 2e-2          # bf16 output rounding and bf16 probabilities
 K2_TIE_GAP = 1e-3      # rows whose plain top-2 logits are closer may differ
 K2_PMAX_RTOL = 1e-3    # losing BPE's ragged last chunk moves pmax ~1.6e-3
 ENCODER_RTOL = 5e-2    # bf16 through 12 layers vs float32, relative RMS
+# K3 against its f32 plain version on the same bf16 inputs, relative to the
+# output's RMS. The kernel rounds each sample to bf16 before the contraction
+# and the output once more, each at most 2^-9 of the value: together ~2e-3
+# of the RMS, and at the largest outputs (~5x the RMS) up to ~2e-2
+K3_RMS_TOL = 5e-3
+K3_MAX_TOL = 4e-2
+LORE_RTOL = 5e-2       # bf16 DLA-34 + DCN neck vs float32, relative RMS
 
 ATTN_SRC = "advancedliteratemachinery_tpu_torch/csrc/fused_qkv_attention.cu"
 DECODE_SRC = "advancedliteratemachinery_tpu_torch/csrc/vocab_greedy_decode.cu"
+DCN_SRC = "advancedliteratemachinery_tpu_torch/csrc/deform_conv.cu"
+# (B, H=W, Cin, Cout, layers per forward) of LORE's 16 DCN layers at 768²
+DCN_PATH_SHAPES = ((8, 24, 512, 256, 1), (8, 48, 256, 256, 1),
+                   (8, 48, 256, 128, 2), (8, 48, 256, 64, 1),
+                   (8, 96, 128, 128, 2), (8, 96, 128, 64, 4),
+                   (8, 192, 64, 64, 5))
 
 
 def emit(obj) -> None:
@@ -168,6 +195,65 @@ def check_decode(M, V, true_v, gen, time_it=True):
         rec["library_ms"] = cuda_ms(lambda: torch.matmul(tok, wt))
         rec["bound_ms"], rec["bound_by"] = bound(
             M * D * 2 + V * D * 2 + V * 2 + M * 8, 2 * M * D * true_v)
+    emit(rec)
+    return rec
+
+
+def check_deform_conv(B, H, W, Cin, Cout, gen, case="normal",
+                      time_it=False, time_plain=False):
+    """K3 against its plain version in f32 on the same bf16 inputs.
+    `case`: normal (offsets N(0, 2²) px), far (uniform ±40 px), beyond3
+    (every offset 3-6 px), outside (every sample wholly off the image) or
+    zero_mask; the last two must give exactly the bias."""
+    dev = "cuda"
+    x = torch.randn(B, H, W, Cin, generator=gen, device=dev).bfloat16()
+    shape = (B, H, W, 9, 2)
+    if case == "far":
+        off = torch.rand(shape, generator=gen, device=dev) * 80 - 40
+    elif case == "beyond3":
+        off = (torch.sign(torch.randn(shape, generator=gen, device=dev))
+               * (3 + 3 * torch.rand(shape, generator=gen, device=dev)))
+    elif case == "outside":
+        off = torch.full(shape, 1000.0, device=dev)
+    else:
+        off = torch.randn(shape, generator=gen, device=dev) * 2
+    off = off.bfloat16()
+    mask = torch.rand(B, H, W, 9, generator=gen, device=dev).bfloat16()
+    if case == "zero_mask":
+        mask.zero_()
+    w = (torch.randn(3, 3, Cin, Cout, generator=gen, device=dev)
+         / (9 * Cin) ** 0.5).bfloat16()
+    b = torch.randn(Cout, generator=gen, device=dev).bfloat16()
+    out = deform_conv2d(x, off, mask, w, b)
+    f32 = [t.float() for t in (x, off, mask, w, b)]
+    want = deform_conv2d_plain(*f32)
+    torch.cuda.synchronize()
+    err = (out.float() - want).abs()
+    rms = want.pow(2).mean().sqrt().item()
+    rec = {"phase": "deform_conv", "B": B, "H": H, "W": W, "Cin": Cin,
+           "Cout": Cout, "case": case, "max_abs_err": err.max().item(),
+           "rel_rms_err": err.pow(2).mean().sqrt().item() / rms,
+           "max_err_over_rms": err.max().item() / rms,
+           "tol": [K3_RMS_TOL, K3_MAX_TOL]}
+    require(out.shape == (B, H, W, Cout)
+            and rec["rel_rms_err"] <= K3_RMS_TOL
+            and rec["max_err_over_rms"] <= K3_MAX_TOL,
+            f"deform_conv disagrees with its plain version: {rec}")
+    if case in ("outside", "zero_mask"):
+        require(torch.equal(out, b.expand_as(out)),
+                f"deform_conv must give exactly the bias: {rec}")
+    if time_it:
+        rec["ms"] = cuda_ms(lambda: deform_conv2d(x, off, mask, w, b))
+        xc, wc = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+        # the yardstick: DCN at zero offsets and a unit mask is this conv
+        rec["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.conv2d(xc, wc, b, padding=1))
+        rec["bound_ms"], rec["bound_by"] = bound(
+            2 * (x.numel() + off.numel() + mask.numel() + w.numel()
+                 + b.numel() + B * H * W * Cout),
+            2 * B * H * W * 9 * Cin * Cout)
+    if time_plain:
+        rec["plain_ms"] = cuda_ms(lambda: deform_conv2d_plain(*f32), iters=3)
     emit(rec)
     return rec
 
@@ -310,34 +396,162 @@ def e2e_spotting(engine):
            "stage_ms": stage_ms, "launches": counts,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     emit(rec)
-    profile_steps(spot_step, pages_np[:3])
+    profile_steps("e2e_profile", [
+        lambda p=p: spot_step(torch.from_numpy(p).cuda())["char_ids"].cpu()
+        for p in pages_np[:3]])
     return rec, counts
 
 
-def profile_steps(step, pages_np):
-    """Device time by kernel name over a few e2e steps (torch.profiler), and
-    the share of their wall time in which no kernel or copy ran (the
-    profiler's own overhead counts into the wall time)."""
+def profile_steps(phase, steps, step_ms=None):
+    """Device time by kernel name over a few steps (torch.profiler; each
+    step ends in a copy to the host), and the share of their wall time in
+    which no kernel or copy ran (the profiler's own overhead counts into
+    the wall time). Given the unprofiled time of a step, also the share of
+    that time the device was not busy."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for p in pages_np:
-            step(torch.from_numpy(p).cuda())["char_ids"].cpu()
+        for step in steps:
+            step()
         wall_ms = (time.perf_counter() - t0) * 1e3
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:15]
-    emit({"phase": "e2e_profile", "steps": len(pages_np),
-          "wall_ms_per_step": wall_ms / len(pages_np),
-          "device_busy_ms_per_step": busy_ms / len(pages_np),
-          "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms else None,
-          "top_device_ms_per_step": [
-              [e.key[:90], e.self_device_time_total / 1e3 / len(pages_np)]
-              for e in top]})
+    rec = {"phase": phase, "steps": len(steps),
+           "wall_ms_per_step": wall_ms / len(steps),
+           "device_busy_ms_per_step": busy_ms / len(steps),
+           "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms else None,
+           "top_device_ms_per_step": [
+               [e.key[:90], e.self_device_time_total / 1e3 / len(steps)]
+               for e in top]}
+    if step_ms is not None:
+        rec["unprofiled_step_ms"] = step_ms
+        rec["device_idle_share_unprofiled"] = (
+            1.0 - busy_ms / len(steps) / step_ms)
+    emit(rec)
+
+
+def reseed_offsets(model, seed):
+    """Spread every DCN's offsets over several pixels, a share of them
+    beyond ±3, and its mask around 0.5. The JAX init zeroes the offset/mask
+    conv, which would make every DCN a plain conv and hide a broken
+    sampler."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, DeformConv2d):
+                com = m.conv_offset_mask
+                K = com.out_channels // 3
+                com.weight.normal_(0, com.weight[0].numel() ** -0.5,
+                                   generator=g)
+                com.bias[:2 * K].normal_(0, 2.5, generator=g)
+                com.bias[2 * K:].normal_(0, 1, generator=g)
+
+
+def check_lore_vs_cpu(model):
+    """Head maps of one 256² page: the card's bf16 model (through K3)
+    against a float32 run of the same weights on the CPU (the plain DCN);
+    also the share of DCN offsets beyond ±3 on that page."""
+    ref = LORE(LoreConfig(), policy=FP32_POLICY, device="cpu")
+    ref.load_state_dict(model.state_dict())
+    x = torch.randn(1, 256, 256, 3, generator=torch.Generator().manual_seed(3))
+    beyond, biggest = [], []
+
+    def hook(mod, inp, _):
+        com = mod.conv_offset_mask
+        om = torch.nn.functional.conv2d(
+            inp[0].permute(0, 3, 1, 2), com.weight.to(inp[0].dtype),
+            com.bias.to(inp[0].dtype), padding=1)[:, :2 * 9].float()
+        beyond.append((om.abs() > 3).float().mean().item())
+        biggest.append(om.abs().max().item())
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, DeformConv2d)]
+    with torch.inference_mode():
+        got = {k: v.float().cpu() for k, v in model(x.cuda()).items()}
+        want = ref(x)
+    for h in handles:
+        h.remove()
+    errs = {k: ((got[k] - want[k]).pow(2).mean().sqrt()
+                / want[k].pow(2).mean().sqrt()).item() for k in want}
+    rec = {"phase": "lore_vs_cpu_f32", "page_hw": [256, 256],
+           "rel_rms_err": errs, "tol": LORE_RTOL, "dcn_layers": len(beyond),
+           "offsets_beyond_3_share": [min(beyond), max(beyond)],
+           "offsets_max_abs": max(biggest)}
+    emit(rec)
+    require(all(bool(torch.isfinite(v).all()) for v in got.values())
+            and max(errs.values()) <= LORE_RTOL,
+            f"LORE head maps disagree with the CPU reference: {rec}")
+    require(len(beyond) == 16 and min(beyond) > 0.0,
+            f"every DCN must see offsets beyond ±3: {rec}")
+
+
+def lore_tsr(model):
+    """bench.py lore_tsr_bench on the port; the second slice's main path."""
+    B, S, iters = 8, 768, 10
+    cfg = model.config
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    pages = torch.randn(B, S, S, 3, device="cuda", generator=gen)
+    with torch.inference_mode():
+        out = model.infer(pages)
+    torch.cuda.synchronize()
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    require(shapes == {"detections": (B, cfg.top_k, 10),
+                       "logic": (B, cfg.top_k, 4),
+                       "raw_logic": (B, cfg.top_k, 4),
+                       "scores": (B, cfg.top_k),
+                       "corners": (B, cfg.corner_k, 8),
+                       "corner_scores": (B, cfg.corner_k, 1)}
+            and all(bool(torch.isfinite(v).all()) for v in out.values()),
+            f"LORE.infer output malformed: {shapes}")
+
+    @torch.inference_mode()
+    def timed_loop():
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            o = model.infer(pages)
+        o["logic"].cpu()
+        return B * iters / (time.perf_counter() - t0)
+
+    torch.cuda.reset_peak_memory_stats()
+    reps, counts = counted(lambda: [timed_loop() for _ in range(3)])
+    require(counts == {"deform_conv": 16 * 3 * iters},
+            f"LORE: launches {counts}, expected 16 deform_conv a forward")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+
+    marks = []           # stage boundaries by CUDA events, on module hooks
+
+    def mark(*_):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
+    handles = [model.backbone.register_forward_pre_hook(mark),
+               model.backbone.register_forward_hook(mark),
+               model.processor.register_forward_pre_hook(mark),
+               model.processor.register_forward_hook(mark)]
+    with torch.inference_mode():
+        for _ in range(3):
+            model.infer(pages)
+    torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    stage_ms = {n: float(np.mean([marks[4 * s + i].elapsed_time(
+                    marks[4 * s + i + 1]) for s in range(3)]))
+                for i, n in enumerate(("backbone_and_neck", "decode",
+                                       "processor"))}
+    rec = {"phase": "lore_tsr", "pages": B, "page_hw": [S, S],
+           "pages_per_s_reps": reps, "pages_per_s_best": max(reps),
+           "stage_ms": stage_ms, "launches": counts, "peak_mem_gb": peak}
+    emit(rec)
+    with torch.inference_mode():
+        profile_steps("lore_profile",
+                      [lambda: model.infer(pages)["logic"].cpu()] * 3,
+                      step_ms=1e3 * B / max(reps))
+    return rec, counts
 
 
 def main() -> int:
@@ -394,6 +608,38 @@ def main() -> int:
             "recognize() output malformed")
 
     _, counts = e2e_spotting(engine)
+    del engine
+    torch.cuda.empty_cache()
+
+    k3_err = 0.0
+    for B, H, Cin, Cout, case in ((3, 13, 40, 72, "normal"),
+                                  (2, 37, 200, 100, "normal"),
+                                  (1, 24, 5, 7, "normal"),
+                                  (2, 48, 64, 64, "far"),
+                                  (2, 48, 64, 64, "beyond3"),
+                                  (2, 48, 64, 64, "outside"),
+                                  (2, 48, 64, 64, "zero_mask")):
+        k3_err = max(k3_err, check_deform_conv(B, H, H + 3, Cin, Cout, gen,
+                                               case)["max_abs_err"])
+    path = []
+    for B, H, Cin, Cout, n in DCN_PATH_SHAPES:
+        rec = check_deform_conv(B, H, H, Cin, Cout, gen, time_it=True,
+                                time_plain=H == 192)
+        k3_err = max(k3_err, rec["max_abs_err"])
+        path.append((n, rec))
+    k3 = path[-1][1]                                    # 64 -> 64 at 192²
+    emit({"phase": "deform_conv_per_forward", "layers": 16,
+          **{key: sum(n * r[key] for n, r in path)
+             for key in ("ms", "library_ms", "bound_ms")}})
+    torch.cuda.empty_cache()
+
+    lore = LORE(LoreConfig(), seed=0)
+    require(lore.config.backbone.dla.channels[-1] == 512
+            and lore.config.backbone.head_conv == 256
+            and lore.config.hidden_size == 256, "not the full LoreConfig")
+    reseed_offsets(lore, seed=7)
+    check_lore_vs_cpu(lore)
+    _, lore_counts = lore_tsr(lore)
     emit({"kernels": [
         {"name": "fused_qkv_attention", "route": "cuda", "source": ATTN_SRC,
          "replaces": "advancedliteratemachinery_tpu/ops/attention.py:51",
@@ -408,6 +654,15 @@ def main() -> int:
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": k2["library_ms"],
          "shape": "M=13312 D=768 V=50304 (true 50257)"},
+        {"name": "deform_conv", "route": "cuda", "source": DCN_SRC,
+         "replaces":
+             "advancedliteratemachinery_tpu/ops/deform_conv_pallas.py:36",
+         "launches": lore_counts["deform_conv"], "max_abs_err": k3_err,
+         "ms": k3["ms"], "plain_ms": k3["plain_ms"],
+         "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
+         "library_ms": k3["library_ms"],
+         "library": "F.conv2d: the same layer at zero offsets, unit mask",
+         "shape": "B=8 H=W=192 Cin=64 Cout=64"},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,6 +12,8 @@ import torch
 from advancedliteratemachinery_tpu_torch.ops import _kernels
 from advancedliteratemachinery_tpu_torch.ops.attention import (
     fused_qkv_attention, fused_qkv_attention_plain)
+from advancedliteratemachinery_tpu_torch.ops.deform_conv import (
+    deform_conv2d, deform_conv2d_plain)
 from advancedliteratemachinery_tpu_torch.ops.vocab_decode import (
     matmul_greedy_decode, matmul_greedy_decode_plain)
 
@@ -62,6 +64,40 @@ def test_vocab_kernel_matches_plain(gen, M, V, true_v):
     torch.testing.assert_close(pmax, ppmax, rtol=1e-3, atol=0)
 
 
+def _dcn_inputs(gen, B, H, W, Cin, Cout, offset_scale):
+    dev = "cuda"
+    x = torch.randn(B, H, W, Cin, generator=gen, device=dev).bfloat16()
+    off = (torch.randn(B, H, W, 9, 2, generator=gen, device=dev)
+           * offset_scale).bfloat16()
+    mask = torch.rand(B, H, W, 9, generator=gen, device=dev).bfloat16()
+    mask[:, :2] = 0                                   # a zero mask
+    w = (torch.randn(3, 3, Cin, Cout, generator=gen, device=dev)
+         / (9 * Cin) ** 0.5).bfloat16()
+    b = torch.randn(Cout, generator=gen, device=dev).bfloat16()
+    return x, off, mask, w, b
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout,offset_scale", [
+    (2, 13, 29, 40, 72, 2.0),        # pixels, Cin and Cout off every tile
+    (1, 24, 24, 5, 7, 1.5),          # Cin off the 8-channel vectors
+    (2, 48, 48, 64, 64, 15.0)])      # ±40 px: many samples off the image
+def test_deform_conv_kernel_matches_plain(gen, B, H, W, Cin, Cout,
+                                          offset_scale):
+    x, off, mask, w, b = _dcn_inputs(gen, B, H, W, Cin, Cout, offset_scale)
+    before = _kernels.LAUNCHES["deform_conv"]
+    out = deform_conv2d(x, off, mask, w, b)
+    assert _kernels.LAUNCHES["deform_conv"] == before + 1
+    want = deform_conv2d_plain(x.float(), off.float(), mask.float(),
+                               w.float(), b.float())
+    # the kernel rounds each sample to bf16 (the plain version here keeps
+    # f32) and the output to bf16: relative to the output's RMS
+    rms = want.pow(2).mean().sqrt()
+    err = (out.float() - want).abs()
+    assert out.shape == (B, H, W, Cout)
+    assert (err.pow(2).mean().sqrt() / rms).item() <= 5e-3
+    assert (err.max() / rms).item() <= 3e-2
+
+
 def test_kernels_reject_unsupported_inputs(gen):
     with pytest.raises(ValueError):    # f32, not bf16
         fused_qkv_attention(torch.zeros(1, 4, 384, device="cuda"), 2)
@@ -72,3 +108,11 @@ def test_kernels_reject_unsupported_inputs(gen):
         matmul_greedy_decode(torch.zeros(4, 96, device="cuda").bfloat16(),
                              torch.zeros(128, 96, device="cuda").bfloat16(),
                              None, 128)
+    x, off, mask, w, b = _dcn_inputs(gen, 1, 8, 8, 8, 8, 1.0)
+    with pytest.raises(ValueError):    # stride 2
+        deform_conv2d(x, off[:, :4, :4], mask[:, :4, :4], w, b, stride=2)
+    with pytest.raises(ValueError):    # f32, not bf16
+        deform_conv2d(x.float(), off.float(), mask.float(), w.float(), None)
+    with pytest.raises(ValueError):    # not a same-size output
+        deform_conv2d(x, off[:, 1:-1, 1:-1], mask[:, 1:-1, 1:-1], w, b,
+                      padding=0)
