@@ -5,7 +5,9 @@ Submodule and parameter names follow the JAX package's flax names, so
 `engine/convert.py` maps a flax parameter tree onto them one to one. Every
 op casts its input and weights to the policy's compute dtype; LayerNorms run
 in float32 with flax's epsilon (1e-6, not torch's 1e-5). Dropout and
-DropPath are identities at inference and are not modelled.
+DropPath act only in `train()` mode at a rate above 0, drawing their masks
+from the `torch.Generator` the caller passes down the forward; otherwise
+they are identities.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy, gelu)
 from advancedliteratemachinery_tpu_torch.ops.attention import (
-    fused_qkv_attention)
+    attention, fused_qkv_attention)
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
 BN_EPS = 1e-5   # flax nn.BatchNorm default
@@ -95,68 +97,119 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype
                         ln.bias.float(), ln.eps).to(dtype)
 
 
+def _keep(x: torch.Tensor, rate: float, shape,
+          generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's `select(bernoulli(keep), x / keep, 0)` with the mask drawn from
+    `generator` over `shape` (broadcast against x)."""
+    if generator is None:
+        raise ValueError("Dropout/DropPath in train mode at a rate above 0 "
+                         "need a torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout (flax `nn.Dropout`)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        return _keep(x, self.rate, x.shape, generator)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth: drops whole samples (the JAX `DropPath`)."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        return _keep(x, self.rate, (x.shape[0],) + (1,) * (x.ndim - 1),
+                     generator)
+
+
 class Mlp(nn.Module):
     def __init__(self, dim: int, hidden_dim: int, out_dim: int,
-                 policy: Policy = DEFAULT_POLICY):
+                 dropout: float = 0.0, policy: Policy = DEFAULT_POLICY):
         super().__init__()
         self.policy = policy
         self.fc1 = nn.Linear(dim, hidden_dim)
         self.fc2 = nn.Linear(hidden_dim, out_dim)
+        self.drop = Dropout(dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c = self.policy.compute_dtype
-        return linear(gelu(linear(x, self.fc1, c)), self.fc2, c)
+        x = self.drop(gelu(linear(x, self.fc1, c)), generator)
+        return self.drop(linear(x, self.fc2, c), generator)
 
 
 class MultiHeadSelfAttention(nn.Module):
     """One fused qkv projection; with no mask the attention itself is the
     fused kernel (`ops/attention.py`), reading the projection output in its
-    [B, N, 3D] q|k|v layout."""
+    [B, N, 3D] q|k|v layout and differentiable through its backward kernel.
+    `proj_dropout` follows the output projection; as in the JAX package the
+    attention probabilities themselves are never dropped."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
-                 policy: Policy = DEFAULT_POLICY):
+                 proj_dropout: float = 0.0, policy: Policy = DEFAULT_POLICY):
         super().__init__()
         self.policy = policy
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
+        self.proj_drop = Dropout(proj_dropout)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, N, D = x.shape
         H = self.num_heads
-        hd = D // H
         c = self.policy.compute_dtype
         qkv = linear(x, self.qkv, c)
         if mask is None:
             out = fused_qkv_attention(qkv, H,
                                       safe=not self.policy.unsafe_softmax)
         else:
-            q, k, v = qkv.reshape(B, N, 3, H, hd).unbind(2)
-            s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (hd ** -0.5)
-            s = s.float().masked_fill(~mask, torch.finfo(torch.float32).min)
-            a = torch.softmax(s, dim=-1).to(q.dtype)
-            out = torch.einsum("bhqk,bkhd->bqhd", a, v).reshape(B, N, D)
-        return linear(out, self.proj, c)
+            q, k, v = qkv.reshape(B, N, 3, H, D // H).unbind(2)
+            out = attention(q, k, v, mask).reshape(B, N, D)
+        return self.proj_drop(linear(out, self.proj, c), generator)
 
 
 class EncoderBlock(nn.Module):
-    """Pre-LN transformer encoder block (ViT style)."""
+    """Pre-LN transformer encoder block (ViT style), with the JAX block's
+    dropout (after the attention projection and in the MLP) and stochastic
+    depth on both residual branches."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 qkv_bias: bool = True, policy: Policy = DEFAULT_POLICY):
+                 qkv_bias: bool = True, dropout: float = 0.0,
+                 drop_path: float = 0.0, policy: Policy = DEFAULT_POLICY):
         super().__init__()
         self.policy = policy
         self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = MultiHeadSelfAttention(dim, num_heads, qkv_bias, policy)
+        self.attn = MultiHeadSelfAttention(dim, num_heads, qkv_bias, dropout,
+                                           policy)
         self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, policy)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dropout, policy)
+        self.drop_path1 = DropPath(drop_path)
+        self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         c = self.policy.compute_dtype
-        x = x + self.attn(layer_norm(x, self.norm1, c), mask)
-        return x + self.mlp(layer_norm(x, self.norm2, c))
+        h = self.attn(layer_norm(x, self.norm1, c), mask, generator)
+        x = x + self.drop_path1(h, generator)
+        h = self.mlp(layer_norm(x, self.norm2, c), generator)
+        return x + self.drop_path2(h, generator)
 
 
 class PatchEmbed(nn.Module):

@@ -89,6 +89,7 @@ class MGPSTRConfig:
     bpe_vocab_size: int = GPT2_VOCAB_SIZE
     wp_vocab_size: int = BERT_VOCAB_SIZE
     vocab_pad_multiple: int = 128
+    drop_path: float = 0.0            # the named variant's stochastic depth
     vit: Optional[ViTConfig] = None   # explicit backbone (None → variant)
     heads: tuple = ("char", "bpe", "wp")
 
@@ -100,7 +101,10 @@ class MGPSTRConfig:
         return _round_up(true_size, self.vocab_pad_multiple)
 
     def vit_config(self) -> ViTConfig:
-        return self.vit if self.vit is not None else VIT_VARIANTS[self.variant]
+        if self.vit is not None:
+            return self.vit
+        return dataclasses.replace(VIT_VARIANTS[self.variant],
+                                   drop_path=self.drop_path)
 
     def head_sizes(self) -> Dict[str, int]:
         """Output width of each built head (char unpadded, as the JAX
@@ -133,13 +137,16 @@ class MGPSTR(nn.Module):
         self.to(device)
 
     def forward(self, images: torch.Tensor, return_attn: bool = False,
-                decode_tokens: bool = False) -> Dict[str, torch.Tensor]:
+                decode_tokens: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Dict[str, torch.Tensor]:
         """images [B, 32, 128, 3] normalized to [-1, 1] → logits per head
-        (output dtype, padded widths), or with `decode_tokens=True` the
-        post-TokenLearner tokens [B, T, D] per head, for the fused vocab
-        decode."""
+        (output dtype, padded widths; the train path), or with
+        `decode_tokens=True` the post-TokenLearner tokens [B, T, D] per
+        head, for the fused vocab decode. `generator` feeds the encoder's
+        dropout and stochastic depth in `train()` mode."""
         c = self.policy.compute_dtype
-        feats = self.encoder(images)
+        feats = self.encoder(images, generator)
         out: Dict[str, torch.Tensor] = {}
         for name in self.config.heads:
             attn, tokens = getattr(self, f"{name}_token_learner")(feats)

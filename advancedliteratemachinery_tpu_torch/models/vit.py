@@ -9,7 +9,7 @@ token, learned position embeddings, pre-LN blocks, and no final norm
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -17,7 +17,7 @@ import torch.nn as nn
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy)
 from advancedliteratemachinery_tpu_torch.models.layers import (
-    LN_EPS, EncoderBlock, PatchEmbed, layer_norm)
+    LN_EPS, Dropout, EncoderBlock, PatchEmbed, layer_norm)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,6 +30,11 @@ class ViTConfig:
     num_heads: int = 12
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
+    dropout: float = 0.0        # after the position embedding, the attention
+    #                             projection and in each MLP
+    attn_dropout: float = 0.0   # carried for parity: as in the JAX package,
+    #                             no dropout touches the attention probabilities
+    drop_path: float = 0.0      # stochastic depth on every residual branch
     use_cls_token: bool = True
     apply_final_norm: bool = False
 
@@ -66,21 +71,24 @@ class VisionTransformer(nn.Module):
         for i in range(cfg.depth):
             self.add_module(f"blocks_{i}", EncoderBlock(
                 cfg.embed_dim, cfg.num_heads, cfg.mlp_ratio, cfg.qkv_bias,
-                policy))
+                cfg.dropout, cfg.drop_path, policy))
+        self.pos_drop = Dropout(cfg.dropout)
         if cfg.apply_final_norm:
             self.norm = nn.LayerNorm(cfg.embed_dim, eps=LN_EPS)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x [B, H, W, C] → token features [B, seq_len, D] (compute dtype)."""
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """x [B, H, W, C] → token features [B, seq_len, D] (compute dtype).
+        `generator` feeds dropout and stochastic depth in `train()` mode."""
         cfg = self.config
         c = self.policy.compute_dtype
         x = self.patch_embed(x.to(c))
         if cfg.use_cls_token:
             cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
             x = torch.cat([cls, x], dim=1)
-        x = x + self.pos_embed.to(x.dtype)
+        x = self.pos_drop(x + self.pos_embed.to(x.dtype), generator)
         for i in range(cfg.depth):
-            x = getattr(self, f"blocks_{i}")(x)
+            x = getattr(self, f"blocks_{i}")(x, generator=generator)
         if cfg.apply_final_norm:
             x = layer_norm(x, self.norm, c)
         return x

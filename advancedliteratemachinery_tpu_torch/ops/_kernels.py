@@ -23,12 +23,16 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 SOURCES = {
     "deform_conv": "deform_conv.cu",
     "fused_qkv_attention": "fused_qkv_attention.cu",
+    "fused_qkv_attention_bwd": "fused_qkv_attention_bwd.cu",
+    "mha_short_seq": "mha_short_seq.cu",
     "vocab_greedy_decode": "vocab_greedy_decode.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -106,3 +110,13 @@ def check(name: str, err: int) -> None:
     if err:
         msg = _LIBS[name].alm_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def refuse_grad(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise for a kernel without a backward when autograd would record the
+    call: its output would carry no `grad_fn` and cut the graph silently."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise ValueError(f"{name} kernel has no backward; call it under "
+                         "torch.no_grad() or on inputs that do not require "
+                         "grad")

@@ -142,6 +142,8 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise ValueError("deform_conv kernel takes bf16 tensors; got "
                          f"{[t.dtype for t in tensors]}")
+    # the DCN backward comes with LORE training
+    _kernels.refuse_grad(KERNEL, *tensors)
     if not all(t.is_contiguous() for t in (x, offsets, mask)):
         raise ValueError("x, offsets and mask must be contiguous")
     # the kernel reads each tap's weights as [Cout, Cin] rows

@@ -31,12 +31,32 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    bf16 with seeded random weights and its offset/mask convs re-seeded away
    from zero, `LORE.infer` on B=8 f32 pages of 768² as `bench.py`'s
    lore_tsr stage; head maps of one 256² page are checked against a float32
-   run of the same weights on the CPU, with stage times and a profile.
+   run of the same weights on the CPU, with stage times and a profile;
+8. fused-qkv attention backward kernel (K4) against its plain version at
+   odd shapes (S = 17, 100, 700, 768) and at the train step's shape
+   (B=128, S=257, H=12), timed beside the backward of
+   `scaled_dot_product_attention`;
+9. short-sequence MHA kernel (K5) on strided q/k/v views against its plain
+   version at S = 17, 300, 1000, 257 (B=128) and 1024;
+10. MGP-STR-base training, the third slice's main path (`bench.py`'s
+    train_bench setting: B=128, seeded uint8 crops and char/BPE/WordPiece
+    ids, Adam at lr 1e-4 on a 1000-step cosine, clip 5.0, bf16 compute,
+    f32 parameters): one step's gradients through K1/K4 against the same
+    step with the attention swapped for the plain versions in f32, per
+    parameter group; best of 3 repetitions of 10 steps of
+    `make_mgp_str_train_step` (samples/s, the forward/backward/optimiser
+    split, peak memory, model-FLOP utilisation, a profile); the loss must
+    fall and stay finite;
+11. `fit()` with `mgp_str_recipe_u8` on MGP-STR-base in a temporary
+    directory: 4 steps saving every 2 and keeping 1; a restore of the last
+    checkpoint equals the live state; a resume to step 6 against an
+    uninterrupted 6-step run.
 
 Launch counts are zeroed just before each main path and read just after:
 every recognizer forward must launch the attention kernel 12 times and the
 vocab kernel twice, every LORE forward the deformable conv kernel 16
-times and nothing else. Every time printed is this card's own, taken
+times and nothing else, every train step the attention kernel and its
+backward kernel 12 times each and nothing else. Every time printed is this card's own, taken
 with CUDA events or, end to end, with the host clock after a synchronize.
 The second-to-last line is one JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.
@@ -45,8 +65,10 @@ The second-to-last line is one JSON object `{"kernels": [...]}`; the last is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -54,14 +76,23 @@ import torch
 
 from advancedliteratemachinery_tpu_torch.codecs.char_codec import CharCodec
 from advancedliteratemachinery_tpu_torch.core.precision import FP32_POLICY
+from advancedliteratemachinery_tpu_torch.engine.batches import (
+    mgp_str_recipe_u8)
+from advancedliteratemachinery_tpu_torch.engine.fit import (
+    FitConfig, fit, restore_train_state)
 from advancedliteratemachinery_tpu_torch.engine.infer import MGPSTRInference
+from advancedliteratemachinery_tpu_torch.engine.train import (
+    TrainState, make_mgp_str_train_step, make_optimizer, mgp_str_loss)
+from advancedliteratemachinery_tpu_torch.models import layers
 from advancedliteratemachinery_tpu_torch.models.db import DBConfig, DBDetector
 from advancedliteratemachinery_tpu_torch.models.lore import LORE, LoreConfig
 from advancedliteratemachinery_tpu_torch.models.mgp_str import (
     MGPSTR, MGPSTRConfig)
 from advancedliteratemachinery_tpu_torch.ops import _kernels
 from advancedliteratemachinery_tpu_torch.ops.attention import (
-    fused_qkv_attention, fused_qkv_attention_plain)
+    fused_qkv_attention, fused_qkv_attention_bwd,
+    fused_qkv_attention_bwd_plain, fused_qkv_attention_plain, mha_short_seq,
+    mha_short_seq_plain)
 from advancedliteratemachinery_tpu_torch.ops.cc_extract import (
     extract_boxes_device)
 from advancedliteratemachinery_tpu_torch.ops.deform_conv import (
@@ -86,10 +117,29 @@ ENCODER_RTOL = 5e-2    # bf16 through 12 layers vs float32, relative RMS
 K3_RMS_TOL = 5e-3
 K3_MAX_TOL = 4e-2
 LORE_RTOL = 5e-2       # bf16 DLA-34 + DCN neck vs float32, relative RMS
+# K4 against its plain version on the same bf16 inputs, per output (dq, dk,
+# dv), relative to the output's RMS. The plain version rounds where the
+# kernel does (qs, p, dS, the output: bf16), in f32 summed in another order,
+# so a rounding may flip by one bf16 ulp (2^-8 of an element). Against the
+# plain version in f32 throughout (no bf16 rounding of p and dS) the RMS
+# error is also held to K4_RMS_TOL; its largest error is only reported:
+# dS sums to zero along a row, and where dq = dS k cancels, the bf16
+# rounding of dS stands out against a small result.
+K4_RMS_TOL = 1e-2
+K4_MAX_TOL = 5e-2
+# one train step's gradients through K1/K4 against the same step with the
+# attention swapped for the plain versions in f32, per parameter group,
+# relative RMS: K1/K4 round p and dS to bf16 where the f32 plain versions
+# do not (~2.4e-3 relative RMS at the attention), and the difference
+# travels back through 12 bf16 layers
+TRAIN_GRAD_RTOL = 2e-2
 
 ATTN_SRC = "advancedliteratemachinery_tpu_torch/csrc/fused_qkv_attention.cu"
 DECODE_SRC = "advancedliteratemachinery_tpu_torch/csrc/vocab_greedy_decode.cu"
 DCN_SRC = "advancedliteratemachinery_tpu_torch/csrc/deform_conv.cu"
+BWD_SRC = ("advancedliteratemachinery_tpu_torch/csrc/"
+           "fused_qkv_attention_bwd.cu")
+MHA_SRC = "advancedliteratemachinery_tpu_torch/csrc/mha_short_seq.cu"
 # (B, H=W, Cin, Cout, layers per forward) of LORE's 16 DCN layers at 768²
 DCN_PATH_SHAPES = ((8, 24, 512, 256, 1), (8, 48, 256, 256, 1),
                    (8, 48, 256, 128, 2), (8, 48, 256, 64, 1),
@@ -149,6 +199,81 @@ def check_attention(B, S, H, safe, gen, time_it=True):
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
         rec["bound_ms"], rec["bound_by"] = bound(
             B * S * 4 * D * 2, 4 * B * H * S * S * 64)
+    emit(rec)
+    return rec
+
+
+def rel_errors(got, want):
+    """(RMS error, largest error), each over the RMS of `want`."""
+    err = (got.float() - want).abs()
+    rms = want.pow(2).mean().sqrt().item()
+    return err.pow(2).mean().sqrt().item() / rms, err.max().item() / rms
+
+
+def check_attention_bwd(B, S, H, gen, time_it=False):
+    """K4 against its plain version in f32 on the same bf16 inputs."""
+    D = H * 64
+    qkv = torch.randn(B, S, 3 * D, generator=gen, device="cuda").bfloat16()
+    dout = torch.randn(B, S, D, generator=gen, device="cuda").bfloat16()
+    got = fused_qkv_attention_bwd(qkv, dout, H)
+    want = fused_qkv_attention_bwd_plain(qkv, dout, H).float()
+    want32 = fused_qkv_attention_bwd_plain(qkv.float(), dout.float(), H)
+    torch.cuda.synchronize()
+    rec = {"phase": "attention_bwd", "B": B, "S": S, "H": H,
+           "max_abs_err": (got.float() - want).abs().max().item(),
+           "tol": [K4_RMS_TOL, K4_MAX_TOL]}
+    for i, name in enumerate(("dq", "dk", "dv")):
+        sl = slice(i * D, (i + 1) * D)
+        rec[f"{name}_rel_rms_err"], rec[f"{name}_max_err_over_rms"] = (
+            rel_errors(got[..., sl], want[..., sl]))
+        rec[f"{name}_vs_f32"] = rel_errors(got[..., sl], want32[..., sl])
+    require(got.shape == qkv.shape and all(
+        rec[f"{n}_rel_rms_err"] <= K4_RMS_TOL
+        and rec[f"{n}_max_err_over_rms"] <= K4_MAX_TOL
+        and rec[f"{n}_vs_f32"][0] <= K4_RMS_TOL
+        for n in ("dq", "dk", "dv")),
+        f"fused_qkv_attention_bwd disagrees with its plain version: {rec}")
+    if time_it:
+        rec["ms"] = cuda_ms(lambda: fused_qkv_attention_bwd(qkv, dout, H))
+        rec["plain_ms"] = cuda_ms(
+            lambda: fused_qkv_attention_bwd_plain(qkv, dout, H), iters=3)
+        # yardstick: SDPA's backward on strided views of the same q/k/v
+        leaf = qkv.detach().requires_grad_()
+        q, k, v = leaf.view(B, S, 3, H, 64).permute(2, 0, 3, 1, 4)
+        o = torch.nn.functional.scaled_dot_product_attention(q, k, v)
+        do = dout.view(B, S, H, 64).transpose(1, 2)
+        rec["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            o, leaf, do, retain_graph=True))
+        rec["bound_ms"], rec["bound_by"] = bound(
+            7 * B * S * D * 2, 10 * B * H * S * S * 64)
+    emit(rec)
+    return rec
+
+
+def check_mha(B, S, H, gen, time_it=False):
+    """K5 against its plain version in f32 on the same bf16 inputs; q, k, v
+    are strided views of one [B, S, 3, H, 64] projection, read in place."""
+    qkv = torch.randn(B, S, 3, H, 64, generator=gen, device="cuda").bfloat16()
+    q, k, v = qkv.unbind(2)
+    out = mha_short_seq(q, k, v)
+    f32 = [t.float() for t in (q, k, v)]
+    want = mha_short_seq_plain(*f32)
+    torch.cuda.synchronize()
+    rec = {"phase": "mha_short_seq", "B": B, "S": S, "H": H,
+           "max_abs_err": (out.float() - want).abs().max().item(),
+           "tol": K1_TOL}
+    rec["rel_rms_err"] = rel_errors(out, want)[0]
+    require(out.shape == (B, S, H, 64) and rec["max_abs_err"] <= K1_TOL,
+            f"mha_short_seq disagrees with its plain version: {rec}")
+    if time_it:
+        rec["ms"] = cuda_ms(lambda: mha_short_seq(q, k, v))
+        rec["plain_ms"] = cuda_ms(lambda: mha_short_seq_plain(*f32), iters=3)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        rec["library_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt))
+        rec["bound_ms"], rec["bound_by"] = bound(
+            4 * B * S * H * 64 * 2, 4 * B * H * S * S * 64)
     emit(rec)
     return rec
 
@@ -417,8 +542,9 @@ def profile_steps(phase, steps, step_ms=None):
         for step in steps:
             step()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    device = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device = [e for e in prof.key_averages()        # kernels and copies,
+              if e.device_type == torch.autograd.DeviceType.CUDA  # not the
+              and not e.is_user_annotation]    # ranges user code annotates
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:15]
     rec = {"phase": phase, "steps": len(steps),
@@ -554,6 +680,217 @@ def lore_tsr(model):
     return rec, counts
 
 
+class PlainAttention(torch.autograd.Function):
+    """The plain versions of K1 and K4 in f32 on the card, as one autograd
+    Function: the reference step of the train phase."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale=None, safe=True):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return fused_qkv_attention_plain(qkv.float(), num_heads, scale,
+                                         safe).to(qkv.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        return (fused_qkv_attention_bwd_plain(
+            qkv.float(), dout.float(), ctx.num_heads).to(qkv.dtype),
+            None, None, None)
+
+
+def param_group(name):
+    for key, group in ((".attn.qkv.", "qkv"), (".attn.proj.", "proj"),
+                       (".mlp.", "mlp"), ("token_learner", "token_learners"),
+                       ("_head.", "heads"), (".norm", "norms")):
+        if key in name:
+            return group
+    return "embed"            # patch embedding, cls token, positions
+
+
+def one_step_grads(model, loss_fn, batch):
+    model.train()
+    model.zero_grad(set_to_none=True)
+    loss, _ = loss_fn(batch, None)
+    loss.backward()
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return loss.item(), grads
+
+
+def train_flops(cfg, B):
+    """Products of one train step (forward + backward = 3 forwards)."""
+    vit = cfg.vit_config()
+    D, S, L, T = vit.embed_dim, vit.seq_len, vit.depth, cfg.max_tokens
+    hidden = int(D * vit.mlp_ratio)
+    layer = 2 * S * D * (3 * D + D + 2 * hidden) + 4 * S * S * D
+    patch = 2 * vit.num_patches * vit.patch_size ** 2 * vit.in_chans * D
+    learner = 2 * (2 * S * D * D // 8) + 2 * S * D * T + 2 * T * S * D
+    heads = sum(2 * T * D * v + learner for v in cfg.head_sizes().values())
+    return 3 * B * (L * layer + patch + heads)
+
+
+def train_step_phase():
+    """bench.py train_bench on the port: MGP-STR-base, B=128, bf16 compute
+    and f32 parameters, Adam at lr 1e-4 on a cosine over 1000 steps, clip
+    5.0; the third slice's main path."""
+    B, T, iters = 128, 27, 10
+    cfg = MGPSTRConfig(variant="base")
+    model = MGPSTR(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    host = {"images": rng.integers(0, 256, (B, 32, 128, 3), dtype=np.uint8),
+            "char_ids": rng.integers(0, 38, (B, T)).astype(np.int32),
+            "bpe_ids": rng.integers(0, 50257, (B, T)).astype(np.int32),
+            "wp_ids": rng.integers(0, 30522, (B, T)).astype(np.int32)}
+    batch = {k: torch.from_numpy(v).cuda() for k, v in host.items()}
+    loss_fn, _ = mgp_str_recipe_u8(model)
+
+    # (a) one step's gradients through K1/K4 against the same step with the
+    # attention swapped for the plain versions in f32
+    (loss, grads), counts = counted(
+        lambda: one_step_grads(model, loss_fn, batch))
+    require(counts == {"fused_qkv_attention": 12,
+                       "fused_qkv_attention_bwd": 12},
+            f"train step: launches {counts}, expected 12 K1 + 12 K4")
+    require(all(bool(g.abs().sum() > 0) for g in grads.values()),
+            "a parameter got a zero gradient")
+    swapped = layers.fused_qkv_attention
+    layers.fused_qkv_attention = (
+        lambda qkv, num_heads, scale=None, safe=True:
+        PlainAttention.apply(qkv, num_heads, scale, safe))
+    try:
+        ref_loss, ref = one_step_grads(model, loss_fn, batch)
+    finally:
+        layers.fused_qkv_attention = swapped
+    num, den = {}, {}
+    for n, g in grads.items():
+        k = param_group(n)
+        num[k] = num.get(k, 0.0) + (g - ref[n]).pow(2).sum().item()
+        den[k] = den.get(k, 0.0) + ref[n].pow(2).sum().item()
+    errs = {k: (num[k] / den[k]) ** 0.5 for k in num}
+    rec = {"phase": "train_grads_vs_plain_attention", "loss": loss,
+           "plain_loss": ref_loss, "rel_rms_err": errs,
+           "tol": TRAIN_GRAD_RTOL, "launches": counts}
+    emit(rec)
+    require(max(errs.values()) <= TRAIN_GRAD_RTOL,
+            f"train gradients disagree with the plain attention: {rec}")
+    del grads, ref
+
+    # (b)-(d) the timed loop of make_mgp_str_train_step on a repeated batch
+    state = TrainState.create(model, make_optimizer(
+        lr=1e-4, total_steps=1000, grad_clip=5.0))
+    step = make_mgp_str_train_step(model, state)
+    fbatch = {**batch, "images": normalize_crops(batch["images"])}
+    losses = [step(fbatch)["loss"] for _ in range(2)]          # warm up
+    torch.cuda.reset_peak_memory_stats()
+
+    def timed_loop():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            losses.append(step(fbatch)["loss"])
+        torch.cuda.synchronize()
+        return B * iters / (time.perf_counter() - t0)
+
+    reps, counts = counted(lambda: [timed_loop() for _ in range(3)])
+    require(counts == {"fused_qkv_attention": 12 * 3 * iters,
+                       "fused_qkv_attention_bwd": 12 * 3 * iters},
+            f"train loop: launches {counts}, expected 12 K1 + 12 K4 a step")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    split = []                        # forward, backward, optimiser
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        ev[0].record()
+        out = mgp_str_loss(model(fbatch["images"]), fbatch)["loss"]
+        ev[1].record()
+        out.backward()
+        ev[2].record()
+        state.apply_gradients()
+        ev[3].record()
+        split.append(ev)
+    torch.cuda.synchronize()
+    split_ms = {n: float(np.mean([e[i].elapsed_time(e[i + 1])
+                                  for e in split]))
+                for i, n in enumerate(("forward", "backward", "optimizer"))}
+    losses = [v.item() for v in losses]
+    step_ms = 1e3 * B / max(reps)
+    flops = train_flops(cfg, B)
+    rec = {"phase": "train_step", "batch": B, "samples_per_s_reps": reps,
+           "samples_per_s_best": max(reps), "step_ms": step_ms,
+           "split_ms": split_ms, "tflop_per_step": flops / 1e12,
+           "mfu": flops / (step_ms * 1e-3) / BF16_FLOP_PER_S,
+           "peak_mem_gb": peak, "launches": counts,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses}
+    emit(rec)
+    require(all(np.isfinite(losses)), f"non-finite train loss: {losses}")
+    require(np.mean(losses[-5:]) < np.mean(losses[:5]),
+            f"the loss does not fall over {len(losses)} steps: {losses}")
+    profile_steps("train_profile",
+                  [lambda: step(fbatch)["loss"].item()] * 3, step_ms=step_ms)
+    del state, step
+    model.zero_grad(set_to_none=True)
+    torch.cuda.empty_cache()
+    return rec, counts, host
+
+
+def fit_phase(host):
+    """fit() with mgp_str_recipe_u8 on MGP-STR-base: 4 steps saving every
+    2 and keeping 1, then a restore of the last checkpoint into a fresh
+    state equals the live one; a resume to step 6 equals an uninterrupted
+    6-step run (the backward is deterministic)."""
+
+    def batches():
+        while True:
+            yield host
+
+    def run(total, ckpt_dir, resume=False):
+        model = MGPSTR(MGPSTRConfig(variant="base"), seed=0)
+        loss_fn, tx = mgp_str_recipe_u8(model)
+        return fit(loss_fn, tx, model, batches(),
+                   FitConfig(total_steps=total, log_interval=2,
+                             save_interval=2, keep_last=1, ckpt_dir=ckpt_dir,
+                             resume=resume), log_fn=lambda m: None)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        a = os.path.join(tmp, "a")
+        t0 = time.perf_counter()
+        first = run(4, a)
+        fit_s = time.perf_counter() - t0
+        kept = sorted(d for d in os.listdir(a) if d.startswith("step_"))
+        fresh = TrainState.create(MGPSTR(MGPSTRConfig(variant="base"),
+                                         seed=1), first.state.tx)
+        restore_train_state(os.path.join(a, "step_4"), fresh)
+        params_equal = all(torch.equal(p, q) for p, q in zip(
+            fresh.model.state_dict().values(),
+            first.state.model.state_dict().values()))
+        opt_equal = all(
+            torch.equal(s[k], t[k].to(s[k].device)) for s, t in zip(
+                fresh.optimizer.state.values(),
+                first.state.optimizer.state.values()) for k in s)
+        del fresh, first
+        resumed = run(6, a, resume=True)
+        straight = run(6, None)
+        resume_diff = max((p - q).abs().max().item() for p, q in zip(
+            resumed.state.model.state_dict().values(),
+            straight.state.model.state_dict().values()))
+        rec = {"phase": "fit", "steps": 4, "fit_s": fit_s, "kept": kept,
+               "restore_params_equal": params_equal,
+               "restore_opt_state_equal": opt_equal,
+               "resumed_steps_run": resumed.steps_run,
+               "resume_vs_uninterrupted_max_abs_diff": resume_diff,
+               "last_metrics": straight.last_metrics}
+        emit(rec)
+    require(kept == ["step_4"] and params_equal and opt_equal
+            and resumed.steps_run == 2,
+            f"fit checkpoints malformed: {rec}")
+    require(np.isfinite(straight.last_metrics["loss"]),
+            f"fit loss not finite: {rec}")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -640,6 +977,27 @@ def main() -> int:
     reseed_offsets(lore, seed=7)
     check_lore_vs_cpu(lore)
     _, lore_counts = lore_tsr(lore)
+    del lore
+    torch.cuda.empty_cache()
+
+    bwd_err = 0.0
+    for B, S, H in ((3, 17, 2), (2, 100, 3), (1, 700, 2), (1, 768, 1)):
+        bwd_err = max(bwd_err,
+                      check_attention_bwd(B, S, H, gen)["max_abs_err"])
+    k4 = check_attention_bwd(128, 257, 12, gen, time_it=True)
+    bwd_err = max(bwd_err, k4["max_abs_err"])
+    mha_err = 0.0
+    for B, S, H in ((3, 17, 2), (2, 300, 3), (1, 1000, 2)):
+        mha_err = max(mha_err, check_mha(B, S, H, gen)["max_abs_err"])
+    k5 = check_mha(128, 257, 12, gen, time_it=True)
+    k5_long = check_mha(16, 1024, 12, gen, time_it=True)
+    mha_err = max(mha_err, k5["max_abs_err"], k5_long["max_abs_err"])
+    torch.cuda.empty_cache()
+
+    _, train_counts, host = train_step_phase()
+    fit_phase(host)
+    torch.cuda.empty_cache()
+    print(smi, flush=True)      # again beside the summary, for short tails
     emit({"kernels": [
         {"name": "fused_qkv_attention", "route": "cuda", "source": ATTN_SRC,
          "replaces": "advancedliteratemachinery_tpu/ops/attention.py:51",
@@ -663,6 +1021,27 @@ def main() -> int:
          "library_ms": k3["library_ms"],
          "library": "F.conv2d: the same layer at zero offsets, unit mask",
          "shape": "B=8 H=W=192 Cin=64 Cout=64"},
+        {"name": "fused_qkv_attention_bwd", "route": "cuda",
+         "source": BWD_SRC,
+         "replaces": "advancedliteratemachinery_tpu/ops/attention.py:165",
+         "launches": train_counts["fused_qkv_attention_bwd"],
+         "max_abs_err": bwd_err, "ms": k4["ms"], "plain_ms": k4["plain_ms"],
+         "bound_ms": k4["bound_ms"], "bound_by": k4["bound_by"],
+         "library_ms": k4["library_ms"],
+         "library": "backward of scaled_dot_product_attention on strided "
+                    "views of the same q/k/v",
+         "shape": "B=128 S=257 D=768 H=12"},
+        {"name": "mha_short_seq", "route": "cuda", "source": MHA_SRC,
+         "replaces": "advancedliteratemachinery_tpu/ops/attention.py:276",
+         "launches": train_counts.get("mha_short_seq", 0),
+         "main_path": "none: no path of the JAX package reaches it",
+         "max_abs_err": mha_err, "ms": k5["ms"], "plain_ms": k5["plain_ms"],
+         "bound_ms": k5["bound_ms"], "bound_by": k5["bound_by"],
+         "library_ms": k5["library_ms"],
+         "library": "scaled_dot_product_attention on the same views",
+         "shape": "B=128 S=257 H=12 hd=64, strided views of one projection",
+         "s1024": {key: k5_long[key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

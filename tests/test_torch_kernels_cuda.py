@@ -11,7 +11,9 @@ import torch
 
 from advancedliteratemachinery_tpu_torch.ops import _kernels
 from advancedliteratemachinery_tpu_torch.ops.attention import (
-    fused_qkv_attention, fused_qkv_attention_plain)
+    fused_qkv_attention, fused_qkv_attention_bwd,
+    fused_qkv_attention_bwd_plain, fused_qkv_attention_plain, mha_short_seq,
+    mha_short_seq_plain)
 from advancedliteratemachinery_tpu_torch.ops.deform_conv import (
     deform_conv2d, deform_conv2d_plain)
 from advancedliteratemachinery_tpu_torch.ops.vocab_decode import (
@@ -116,3 +118,90 @@ def test_kernels_reject_unsupported_inputs(gen):
     with pytest.raises(ValueError):    # not a same-size output
         deform_conv2d(x, off[:, 1:-1, 1:-1], mask[:, 1:-1, 1:-1], w, b,
                       padding=0)
+
+
+@pytest.mark.parametrize("B,S,H", [(3, 17, 2), (2, 100, 3)])
+def test_attention_bwd_kernel_matches_plain(gen, B, S, H):
+    D = H * 64
+    qkv = torch.randn(B, S, 3 * D, generator=gen, device="cuda").bfloat16()
+    dout = torch.randn(B, S, D, generator=gen, device="cuda").bfloat16()
+    before = _kernels.LAUNCHES["fused_qkv_attention_bwd"]
+    got = fused_qkv_attention_bwd(qkv, dout, H).float()
+    assert _kernels.LAUNCHES["fused_qkv_attention_bwd"] == before + 1
+    # the plain version rounds where the kernel does (qs, p, dS, output);
+    # sums in another order may flip a rounding: relative to each output's
+    # RMS
+    want = fused_qkv_attention_bwd_plain(qkv, dout, H).float()
+    for i in range(3):
+        w, g = want[..., i * D:(i + 1) * D], got[..., i * D:(i + 1) * D]
+        rms = w.pow(2).mean().sqrt()
+        assert ((g - w).pow(2).mean().sqrt() / rms).item() <= 1e-2
+        assert ((g - w).abs().max() / rms).item() <= 5e-2
+
+
+def test_attention_autograd_launches_k1_and_k4(gen):
+    qkv = torch.randn(2, 33, 3 * 128, generator=gen,
+                      device="cuda").bfloat16().requires_grad_()
+    g = torch.randn(2, 33, 128, generator=gen, device="cuda").bfloat16()
+    before = dict(_kernels.LAUNCHES)
+    fused_qkv_attention(qkv, 2).backward(g)
+    assert _kernels.LAUNCHES["fused_qkv_attention"] == before.get(
+        "fused_qkv_attention", 0) + 1
+    assert _kernels.LAUNCHES["fused_qkv_attention_bwd"] == before.get(
+        "fused_qkv_attention_bwd", 0) + 1
+    assert torch.equal(qkv.grad,
+                       fused_qkv_attention_bwd(qkv.detach(), g, 2))
+
+
+@pytest.mark.parametrize("B,S,H", [(3, 17, 2), (2, 300, 3)])
+def test_mha_kernel_matches_plain(gen, B, S, H):
+    qkv = torch.randn(B, S, 3, H, 64, generator=gen,
+                      device="cuda").bfloat16()
+    q, k, v = qkv.unbind(2)               # strided views, read in place
+    before = _kernels.LAUNCHES["mha_short_seq"]
+    out = mha_short_seq(q, k, v)
+    assert _kernels.LAUNCHES["mha_short_seq"] == before + 1
+    want = mha_short_seq_plain(q.float(), k.float(), v.float())
+    # bf16 probabilities and output
+    assert out.shape == (B, S, H, 64)
+    assert (out.float() - want).abs().max().item() <= 2e-2
+
+
+def test_new_kernels_reject_unsupported_inputs(gen):
+    qkv = torch.zeros(1, 4, 384, device="cuda").bfloat16()
+    dout = torch.zeros(1, 4, 128, device="cuda").bfloat16()
+    with pytest.raises(ValueError):    # f32, not bf16
+        fused_qkv_attention_bwd(qkv.float(), dout.float(), 2)
+    with pytest.raises(ValueError):    # dout of another shape
+        fused_qkv_attention_bwd(qkv, dout[:, :3], 2)
+    with pytest.raises(ValueError):    # S above 768
+        fused_qkv_attention_bwd(torch.zeros(1, 769, 192, device="cuda")
+                                .bfloat16(), torch.zeros(
+                                    1, 769, 64, device="cuda").bfloat16(), 1)
+    q = torch.zeros(1, 4, 2, 64, device="cuda").bfloat16()
+    with pytest.raises(ValueError):    # f32, not bf16
+        mha_short_seq(q.float(), q.float(), q.float())
+    with pytest.raises(ValueError):    # S above 1024
+        long = torch.zeros(1, 1025, 1, 64, device="cuda").bfloat16()
+        mha_short_seq(long, long, long)
+    with pytest.raises(ValueError):    # head dim 32
+        mha_short_seq(q[..., :32], q[..., :32], q[..., :32])
+    odd = torch.zeros(1, 4, 2, 68, device="cuda").bfloat16()[..., :64]
+    with pytest.raises(ValueError):    # rows not 16-byte aligned
+        mha_short_seq(odd, odd, odd)
+    with pytest.raises(ValueError):    # K5 has no backward
+        mha_short_seq(q.requires_grad_(), q, q)
+
+
+def test_kernels_without_backward_refuse_grad(gen):
+    tok = torch.randn(4, 64, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(128, 64, generator=gen, device="cuda").bfloat16()
+    with pytest.raises(ValueError):    # K2 would cut the graph
+        matmul_greedy_decode(tok.requires_grad_(), w, None, 128)
+    with torch.no_grad():
+        matmul_greedy_decode(tok, w, None, 128)
+    x, off, mask, wt, b = _dcn_inputs(gen, 1, 8, 8, 8, 8, 1.0)
+    with pytest.raises(ValueError):    # K3 would cut the graph
+        deform_conv2d(x, off, mask, wt.requires_grad_(), b)
+    with torch.no_grad():
+        deform_conv2d(x, off, mask, wt, b)
