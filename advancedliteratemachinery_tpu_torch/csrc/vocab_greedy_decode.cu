@@ -11,7 +11,7 @@
 // On the TPU a sequential grid carried the running (max, argmax, sum-exp)
 // across vocab tiles. Blocks on Hopper run in no order, so the work is two
 // passes: pass 1 gives each block one 128-row token tile and a chunk of
-// 8 x 128 vocab columns and writes one partial (max, argmax, sum-exp) per
+// 8 x 256 vocab columns and writes one partial (max, argmax, sum-exp) per
 // row and chunk; pass 2 merges the partials per row in chunk order. Every
 // merge replaces the running max only when the new one is strictly greater,
 // and the reductions inside a tile prefer the lower column on equal values,
@@ -19,71 +19,53 @@
 //
 // What bounds it on an H100: at M=6656 (256 crops x 26 positions), D=768,
 // V=50304 it needs 514 GFLOP of products (0.52 ms at 989 TFLOP/s bf16)
-// against 91 MB of input (0.03 ms at 3.35 TB/s): compute-bound. Pass 1 is
-// therefore a tensor-core GEMM main loop: eight warps (4 along M x 2 along
-// N, 32 x 64 each) run mma.sync m16n8k16 (bf16 in, f32 accumulate) on
-// fragments loaded by ldmatrix from a double-buffered cp.async ring of
-// 128 x 64 token and weight tiles, and the ring runs on across the chunk's
-// column tiles, so the next tile's loads are in flight during a tile's epilogue.
-// The epilogue reduces the logits in registers (bias, mask, max/argmax and
-// sum-exp per row across a quad of lanes, then across the two warps of a
-// row through shared memory) and never stores them. wgmma and TMA are later
-// work.
+// against 91 MB of input (0.03 ms at 3.35 TB/s): compute-bound, and only
+// wgmma reaches the tensor cores' full rate. Pass 1 is a warp-specialised
+// wgmma GEMM. One producer thread keeps a 4-stage ring of shared-memory
+// tiles full by TMA: per stage the token tile [128, 64] and the weight tile
+// [256, 64], both K-major as stored, in the 128-byte swizzle wgmma reads,
+// each stage tracked by a full and an empty mbarrier; rows past M or V
+// arrive as zeros. Two consumer warpgroups (64 token rows each, 232
+// registers a thread after setmaxnreg; the producer warpgroup keeps 40)
+// run wgmma m64n256k16 over D in steps of 64 with 128 f32 accumulators a
+// thread, so both share every weight tile (87 FLOP per byte staged).
+//
+// The epilogue runs on the accumulators in registers: add the f32 bias,
+// mask columns >= true_vocab, and reduce each row's max, argmax and
+// sum-exp across the quad of lanes that holds the row. Its 128 exp a
+// thread per tile (335 M at M=6656 BPE) are hidden behind loads, not
+// behind products: the producer runs on across the chunk's column tiles,
+// so while the consumers reduce one tile the next tile's first four
+// stages are already landing. Ping-pong between the consumer warpgroups
+// (each on its own tile, the other one's epilogue under its products)
+// would need separate stages per warpgroup, halve the tile that one stage
+// feeds and raise the L2-to-shared traffic by a third; at this tile the
+// epilogue costs about a sixth of the products' time at peak.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sm90_common.cuh"
+
 namespace {
 
 constexpr int BM = 128;           // token rows per block
-constexpr int BN = 128;           // vocab columns per tile
-constexpr int BK = 64;            // contraction step
-constexpr int LDS = BK + 8;       // smem row pitch: conflict-free ldmatrix
-constexpr int STAGES = 2;         // double buffer (timed best with BK=64)
+constexpr int BN = 256;           // vocab columns per tile
+constexpr int BK = 64;            // contraction step (one 128-byte row)
+constexpr int STAGES = 4;
 constexpr int TILES_PER_CHUNK = 8;
-constexpr int NTHREADS = 256;     // 8 warps: 4 along M x 2 along N
+constexpr int NTHREADS = 384;     // producer warpgroup + 2 consumers
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int B_BYTES = BN * BK * 2;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int NACC = BN / 2;      // f32 accumulators a consumer thread
 constexpr float NEG = -1e30f;     // masked column, as the TPU kernel's NEG
 
-constexpr size_t STAGE_ELEMS = (size_t)(BM + BN) * LDS;
-constexpr size_t SMEM_BYTES =
-    STAGES * STAGE_ELEMS * sizeof(__nv_bfloat16)   // A and B ring
-    + 2 * BM * 3 * sizeof(float)                   // per-warp-column partials
-    + BM * 3 * sizeof(float);                      // running max/arg/sum
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-    const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-    const int n = valid ? 16 : 0;   // 0 bytes read: the 16 bytes are zeroed
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-    const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-    asm volatile(
-        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-
-// d += a (16x16 row-major) * b (16x8 column-major); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+constexpr size_t SMEM_BYTES = 1024                 // alignment slack
+                              + (size_t)STAGES * STAGE_BYTES
+                              + TILES_PER_CHUNK * BN * sizeof(float)  // bias
+                              + 2 * STAGES * sizeof(uint64_t);
 
 // (m, a, s) then (m2, a2, s2) from later columns: a strictly greater max wins
 __device__ __forceinline__ void merge(float& m, int& a, float& s, float m2,
@@ -97,189 +79,179 @@ __device__ __forceinline__ void merge(float& m, int& a, float& s, float m2,
     }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 2)
-vocab_partial_kernel(const __nv_bfloat16* __restrict__ tok,
-                     const __nv_bfloat16* __restrict__ w,
+// One 64 x 256 logits tile of a consumer warpgroup, in its accumulators:
+// bias (the tile's 256 values in shared memory), mask (MASKED: some column
+// >= true_vocab), then per row r (g, g + 8) the tile's max, first argmax
+// and sum-exp, merged into the running state.
+template <bool MASKED>
+__device__ __forceinline__ void reduce_tile(float (&acc)[NACC],
+                                            const float* tile_bias,
+                                            int n0, int t, int true_vocab,
+                                            float (&rm)[2], int (&ra)[2],
+                                            float (&rs)[2]) {
+#pragma unroll
+    for (int j = 0; j < NACC / 4; ++j) {
+        const int col = n0 + 8 * j + 2 * t;
+        const float2 bb =
+            *reinterpret_cast<const float2*>(tile_bias + 8 * j + 2 * t);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            acc[4 * j + 2 * r] += bb.x;
+            acc[4 * j + 2 * r + 1] += bb.y;
+            if (MASKED) {
+                if (col >= true_vocab) acc[4 * j + 2 * r] = NEG;
+                if (col + 1 >= true_vocab) acc[4 * j + 2 * r + 1] = NEG;
+            }
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        float best = NEG;
+        int arg = n0 + 2 * t;
+#pragma unroll
+        for (int j = 0; j < NACC / 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const float x = acc[4 * j + 2 * r + e];
+                if (x > best) {
+                    best = x;
+                    arg = n0 + 8 * j + 2 * t + e;
+                }
+            }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+            const float ob = __shfl_xor_sync(0xffffffffu, best, off);
+            const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
+            if (ob > best || (ob == best && oa < arg)) {
+                best = ob;
+                arg = oa;
+            }
+        }
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < NACC / 4; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+                if (!MASKED || n0 + 8 * j + 2 * t + e < true_vocab)
+                    s += __expf(acc[4 * j + 2 * r + e] - best);
+        s += __shfl_xor_sync(0xffffffffu, s, 1);
+        s += __shfl_xor_sync(0xffffffffu, s, 2);
+        merge(rm[r], ra[r], rs[r], best, arg, s);
+    }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+vocab_partial_kernel(__grid_constant__ const CUtensorMap tm_tok,
+                     __grid_constant__ const CUtensorMap tm_w,
                      const float* __restrict__ bias,
                      float* __restrict__ part_m, int* __restrict__ part_a,
                      float* __restrict__ part_s,
                      int M, int D, int V, int true_vocab, int n_chunks) {
-    extern __shared__ __align__(128) unsigned char smem[];
-    __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-    float* red_m = reinterpret_cast<float*>(ring + STAGES * STAGE_ELEMS);
-    float* red_s = red_m + 2 * BM;
-    int* red_a = reinterpret_cast<int*>(red_s + 2 * BM);
-    float* m_run = reinterpret_cast<float*>(red_a + 2 * BM);
-    float* s_run = m_run + BM;
-    int* a_run = reinterpret_cast<int*>(s_run + BM);
+    extern __shared__ unsigned char smem_raw[];
+    // 1024-byte aligned for the swizzled tiles; an offset from the shared
+    // array keeps every access below a shared-memory (not generic) one
+    unsigned char* ring = smem_raw + sm90::align1024_pad(smem_raw);
+    float* sbias = reinterpret_cast<float*>(ring + STAGES * STAGE_BYTES);
+    uint64_t* full = reinterpret_cast<uint64_t*>(sbias + TILES_PER_CHUNK * BN);
+    uint64_t* empty = full + STAGES;
 
-    const int m0 = blockIdx.y * BM;
-    const int chunk = blockIdx.x;
-    const int warp = threadIdx.x / 32;
-    const int lane = threadIdx.x % 32;
-    const int wm = warp / 2;      // rows wm*32 .. +31
-    const int wn = warp % 2;      // columns wn*64 .. +63 of the tile
-    const int g = lane / 4;
-    const int t = lane % 4;
-
+    const int m0 = blockIdx.x * BM;
+    const int chunk = blockIdx.y;
     const int n_first = chunk * TILES_PER_CHUNK * BN;
     const int n_tiles = min(TILES_PER_CHUNK, (V - n_first + BN - 1) / BN);
     const int KT = D / BK;
-    const int steps = n_tiles * KT;
+    const int wg = threadIdx.x / 128;
 
-    for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-        m_run[r] = NEG;
-        a_run[r] = 0;
-        s_run[r] = 0.f;
-    }
-
-    // one ring slot: A = tokens [m0, m0+128) x [k0, k0+64), B = weight rows
-    // [n0, n0+128) x [k0, k0+64); 16 bytes a copy
-    auto load = [&](int step) {
-        __nv_bfloat16* As = ring + (step % STAGES) * STAGE_ELEMS;
-        __nv_bfloat16* Bs = As + BM * LDS;
-        const int n0 = n_first + (step / KT) * BN;
-        const int k0 = (step % KT) * BK;
-#pragma unroll
-        for (int i = 0; i < BM * BK / 8 / NTHREADS; ++i) {
-            const int idx = threadIdx.x + i * NTHREADS;
-            const int r = idx / (BK / 8), c = idx % (BK / 8);
-            const bool va = m0 + r < M, vb = n0 + r < V;
-            cp_async16(As + r * LDS + c * 8,
-                       tok + (va ? (size_t)(m0 + r) * D + k0 + c * 8 : 0), va);
-            cp_async16(Bs + r * LDS + c * 8,
-                       w + (vb ? (size_t)(n0 + r) * D + k0 + c * 8 : 0), vb);
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < STAGES; ++s) {
+            sm90::mbar_init(&full[s], 1);    // the producer's expect_tx
+            sm90::mbar_init(&empty[s], 8);   // one arrival a consumer warp
         }
-    };
-
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-        if (s < steps) load(s);
-        cp_async_commit();
+        sm90::fence_mbar_init();
     }
-
-    float acc[2][8][4];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-            acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] =
-                acc[mi][ni][3] = 0.f;
-
-    for (int step = 0; step < steps; ++step) {
-        cp_async_wait<STAGES - 2>();
-        __syncthreads();   // slot `step` landed; slot `step - 1` is free
-        if (step + STAGES - 1 < steps) load(step + STAGES - 1);
-        cp_async_commit();
-
-        const __nv_bfloat16* As = ring + (step % STAGES) * STAGE_ELEMS;
-        const __nv_bfloat16* Bs = As + BM * LDS;
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-            uint32_t a[2][4];
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-                ldsm_x4(a[mi], As + (wm * 32 + mi * 16 + lane % 8
-                                     + ((lane / 8) & 1) * 8) * LDS
-                                   + kk + (lane / 16) * 8);
-#pragma unroll
-            for (int nj = 0; nj < 4; ++nj) {
-                // matrices: columns +0-7 / +8-15 x k +0-7 / +8-15
-                uint32_t b[4];
-                ldsm_x4(b, Bs + (wn * 64 + nj * 16 + lane % 8
-                                 + (lane / 16) * 8) * LDS
-                               + kk + ((lane / 8) & 1) * 8);
-#pragma unroll
-                for (int mi = 0; mi < 2; ++mi) {
-                    mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
-                    mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
-                }
-            }
-        }
-
-        if (step % KT == KT - 1) {
-            // epilogue of one 128 x 128 logits tile, in registers
-            const int n0 = n_first + (step / KT) * BN + wn * 64;
-            float bv[8][2];
-#pragma unroll
-            for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const int col = n0 + ni * 8 + 2 * t + e;
-                    bv[ni][e] = col < true_vocab ? bias[col] : 0.f;
-                }
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-                for (int r = 0; r < 2; ++r) {
-                    float best = NEG;
-                    int arg = n0 + 2 * t;
-#pragma unroll
-                    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-                        for (int e = 0; e < 2; ++e) {
-                            const int col = n0 + ni * 8 + 2 * t + e;
-                            const float x = col < true_vocab
-                                ? acc[mi][ni][2 * r + e] + bv[ni][e] : NEG;
-                            acc[mi][ni][2 * r + e] = x;
-                            if (x > best) { best = x; arg = col; }
-                        }
-#pragma unroll
-                    for (int off = 1; off < 4; off <<= 1) {
-                        const float ob =
-                            __shfl_xor_sync(0xffffffffu, best, off);
-                        const int oa =
-                            __shfl_xor_sync(0xffffffffu, arg, off);
-                        if (ob > best || (ob == best && oa < arg)) {
-                            best = ob;
-                            arg = oa;
-                        }
-                    }
-                    float s = 0.f;
-#pragma unroll
-                    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-                        for (int e = 0; e < 2; ++e)
-                            if (n0 + ni * 8 + 2 * t + e < true_vocab)
-                                s += __expf(acc[mi][ni][2 * r + e] - best);
-                    s += __shfl_xor_sync(0xffffffffu, s, 1);
-                    s += __shfl_xor_sync(0xffffffffu, s, 2);
-                    if (t == 0) {
-                        const int row = wm * 32 + mi * 16 + g + 8 * r;
-                        red_m[wn * BM + row] = best;
-                        red_a[wn * BM + row] = arg;
-                        red_s[wn * BM + row] = s;
-                    }
-                }
-            }
-            __syncthreads();
-            for (int row = threadIdx.x; row < BM; row += NTHREADS) {
-                float m = m_run[row], s = s_run[row];
-                int a = a_run[row];
-                merge(m, a, s, red_m[row], red_a[row], red_s[row]);
-                merge(m, a, s, red_m[BM + row], red_a[BM + row],
-                      red_s[BM + row]);
-                m_run[row] = m;
-                a_run[row] = a;
-                s_run[row] = s;
-            }
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-                for (int ni = 0; ni < 8; ++ni)
-                    acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] =
-                        acc[mi][ni][3] = 0.f;
-        }
-    }
-    cp_async_wait<0>();
     __syncthreads();
 
-    for (int r = threadIdx.x; r < BM; r += NTHREADS) {
-        if (m0 + r < M) {
-            const size_t o = (size_t)(m0 + r) * n_chunks + chunk;
-            part_m[o] = m_run[r];
-            part_a[o] = a_run[r];
-            part_s[o] = s_run[r];
+    if (wg == 0) {
+        // producer: one thread issues every TMA load of the block
+        sm90::setmaxnreg_dec<40>();
+        if (threadIdx.x == 0) {
+            const int steps = n_tiles * KT;
+            for (int step = 0; step < steps; ++step) {
+                const int slot = step % STAGES;
+                sm90::mbar_wait(&empty[slot], ((step / STAGES) & 1) ^ 1);
+                unsigned char* st = ring + slot * STAGE_BYTES;
+                sm90::mbar_arrive_expect_tx(&full[slot], STAGE_BYTES);
+                const int k0 = (step % KT) * BK;
+                sm90::tma_load_2d(st, &tm_tok, &full[slot], k0, m0);
+                sm90::tma_load_2d(st + A_BYTES, &tm_w, &full[slot], k0,
+                                  n_first + (step / KT) * BN);
+            }
+        }
+        return;
+    }
+
+    // consumers: warpgroup cw owns token rows cw*64 .. +63 of the tile
+    sm90::setmaxnreg_inc<232>();
+    const int cw = wg - 1;
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int t = lane % 4;
+    float acc[NACC];
+#pragma unroll
+    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+    float rm[2] = {NEG, NEG}, rs[2] = {0.f, 0.f};
+    int ra[2] = {0, 0};
+    // the chunk's bias, zero past true_vocab, once for both warpgroups
+    for (int i = threadIdx.x - 128; i < n_tiles * BN; i += 256) {
+        const int col = n_first + i;
+        sbias[i] = col < true_vocab ? bias[col] : 0.f;
+    }
+    sm90::named_bar_sync(1, 256);
+
+    int step = 0;
+    for (int tile = 0; tile < n_tiles; ++tile) {
+        for (int k = 0; k < KT; ++k, ++step) {
+            const int slot = step % STAGES;
+            sm90::mbar_wait(&full[slot], (step / STAGES) & 1);
+            const unsigned char* st = ring + slot * STAGE_BYTES;
+            const uint64_t da = sm90::desc_sw128(st + cw * 64 * 128);
+            const uint64_t db = sm90::desc_sw128(st + A_BYTES);
+            sm90::fence_operands(acc);
+            sm90::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < BK / 16; ++kk)
+                sm90::wgmma_bf16<BN>(acc, da + 2 * kk, db + 2 * kk,
+                                     (k | kk) != 0);
+            sm90::wgmma_commit();
+            sm90::fence_operands(acc);
+            // the previous stage's products are done: hand its slot back
+            sm90::wgmma_wait<1>();
+            if (k > 0 && lane == 0)
+                sm90::mbar_arrive(&empty[(step - 1) % STAGES]);
+        }
+        sm90::wgmma_wait<0>();
+        sm90::fence_operands(acc);
+        if (lane == 0) sm90::mbar_arrive(&empty[(step - 1) % STAGES]);
+
+        const int n0 = n_first + tile * BN;
+        const float* tile_bias = sbias + tile * BN;
+        if (n0 + BN <= true_vocab)
+            reduce_tile<false>(acc, tile_bias, n0, t, true_vocab, rm, ra, rs);
+        else
+            reduce_tile<true>(acc, tile_bias, n0, t, true_vocab, rm, ra, rs);
+    }
+
+    if (t == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const int row = m0 + cw * 64 + warp * 16 + lane / 4 + 8 * r;
+            if (row < M) {
+                const size_t o = (size_t)row * n_chunks + chunk;
+                part_m[o] = rm[r];
+                part_a[o] = ra[r];
+                part_s[o] = rs[r];
+            }
         }
     }
 }
@@ -316,27 +288,44 @@ extern "C" int alm_vocab_num_chunks(int V) {
 
 // tok [M, D] bf16, w [V, D] bf16, bias [V] f32 -> ids [M] i32, pmax [M] f32;
 // part_* are [M, alm_vocab_num_chunks(V)] scratch. D must be a multiple of
-// 64 and true_vocab <= V.
+// 64, true_vocab <= V, and tok and w 16-byte aligned (TMA).
 extern "C" int alm_vocab_greedy_decode(const void* tok, const void* w,
                                        const void* bias, void* part_m,
                                        void* part_a, void* part_s, void* ids,
                                        void* pmax, int M, int D, int V,
                                        int true_vocab, void* stream) {
-    if (M < 1 || D < BK || D % BK || true_vocab < 1 || true_vocab > V)
+    if (M < 1 || D < BK || D % BK || true_vocab < 1 || true_vocab > V ||
+        reinterpret_cast<uintptr_t>(tok) % 16 ||
+        reinterpret_cast<uintptr_t>(w) % 16)
         return static_cast<int>(cudaErrorInvalidValue);
     const int n_chunks = alm_vocab_num_chunks(V);
-    cudaError_t err = cudaFuncSetAttribute(
-        vocab_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(SMEM_BYTES));
+    CUtensorMap tm_tok, tm_w;
+    const cuuint64_t tok_dims[2] = {(cuuint64_t)D, (cuuint64_t)M};
+    const cuuint64_t w_dims[2] = {(cuuint64_t)D, (cuuint64_t)V};
+    const cuuint64_t pitch[1] = {(cuuint64_t)D * 2};
+    const cuuint32_t tok_box[2] = {BK, BM};
+    const cuuint32_t w_box[2] = {BK, BN};
+    cudaError_t err = sm90::encode_tile_map(&tm_tok, 2, tok, tok_dims, pitch,
+                                            tok_box);
+    if (err == cudaSuccess)
+        err = sm90::encode_tile_map(&tm_w, 2, w, w_dims, pitch, w_box);
+    static unsigned configured = 0;
+    if (err == cudaSuccess)
+        err = sm90::once_per_device(configured, [] {
+            return cudaFuncSetAttribute(
+                vocab_partial_kernel,
+                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(SMEM_BYTES));
+        });
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const dim3 grid(n_chunks, (M + BM - 1) / BM);
+    // token tiles vary fastest: the blocks in flight share a few chunks of
+    // the weight in L2 and read it from memory about once
+    const dim3 grid((M + BM - 1) / BM, n_chunks);
     vocab_partial_kernel<<<grid, NTHREADS, SMEM_BYTES, st>>>(
-        static_cast<const __nv_bfloat16*>(tok),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<const float*>(bias), static_cast<float*>(part_m),
-        static_cast<int*>(part_a), static_cast<float*>(part_s), M, D, V,
-        true_vocab, n_chunks);
+        tm_tok, tm_w, static_cast<const float*>(bias),
+        static_cast<float*>(part_m), static_cast<int*>(part_a),
+        static_cast<float*>(part_s), M, D, V, true_vocab, n_chunks);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     vocab_merge_kernel<<<(M + 255) / 256, 256, 0, st>>>(

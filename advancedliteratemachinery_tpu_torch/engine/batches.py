@@ -11,11 +11,12 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, Dict, Iterator, Tuple, Union
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.engine.train import (
     OptimizerConfig, make_optimizer, mgp_str_loss)
 from advancedliteratemachinery_tpu_torch.ops.image import normalize_crops
@@ -34,10 +35,12 @@ def mgp_str_recipe_u8(model) -> Tuple[Callable, OptimizerConfig]:
 
 
 def to_device(batch: Dict[str, np.ndarray],
-              device: Union[str, torch.device]) -> Dict[str, torch.Tensor]:
+              device: Optional[Union[str, torch.device]] = None
+              ) -> Dict[str, torch.Tensor]:
     """Host numpy batch → device tensors; for a CUDA device from pinned
-    memory with asynchronous copies on the current stream."""
-    device = torch.device(device)
+    memory with asynchronous copies on the current stream. `device=None`
+    means the GPU and raises without one (`resolve_device`)."""
+    device = resolve_device(device)
     out = {}
     for k, v in batch.items():
         t = torch.from_numpy(np.ascontiguousarray(v))
@@ -48,16 +51,22 @@ def to_device(batch: Dict[str, np.ndarray],
 
 
 def prefetch_batches(batches: Iterator[Dict[str, np.ndarray]], size: int = 2,
-                     device: Union[str, torch.device] = "cpu"
+                     device: Optional[Union[str, torch.device]] = None
                      ) -> Iterator[Dict[str, torch.Tensor]]:
     """Background-thread prefetcher: keeps up to `size` batches ahead of the
-    consumer, each already on `device` (`to_device`). The reference relies
+    consumer, each already on `device` (`to_device`; None means the GPU and
+    raises here, not at the first batch, without one). The reference relies
     on torch DataLoader worker processes for this overlap; here the host
     batch assembly runs ahead on one thread while the loop launches steps.
 
     An exception in the source iterator is raised to the consumer at the
     matching `next()`. The thread is a daemon and also exits when the
     consumer drops the iterator."""
+    return _prefetch(batches, size, resolve_device(device))
+
+
+def _prefetch(batches: Iterator[Dict[str, np.ndarray]], size: int,
+              device: torch.device) -> Iterator[Dict[str, torch.Tensor]]:
     q: "queue.Queue" = queue.Queue(maxsize=max(1, size))
     end = object()
 

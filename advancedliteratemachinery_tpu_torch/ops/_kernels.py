@@ -2,9 +2,10 @@
 
 Each source under `csrc/` is a plain-C-interface CUDA file. On first use it
 is compiled with `nvcc` for `sm_90a` into a shared library under `build/`
-(named by a hash of the source and the flags, so an edited source rebuilds)
-and loaded with `ctypes`. Nothing is built when a module is imported: the
-CPU tests import every module and never reach a kernel.
+(named by a hash of the source, the local headers it includes and the
+flags, so an edited source or header rebuilds) and loaded with `ctypes`.
+Nothing is built when a module is imported: the CPU tests import every
+module and never reach a kernel.
 
 `LAUNCHES` counts kernel launches per wrapper; a wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that its main path
@@ -17,6 +18,7 @@ import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -52,10 +54,27 @@ def _nvcc() -> str:
                        "are built from source on first use")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: Path, seen: Optional[list] = None) -> list:
+    """`path` and every `#include "..."` beside it that it pulls in,
+    recursively, each once, in include order."""
+    seen = [] if seen is None else seen
+    path = path.resolve()
+    if path not in seen:
+        seen.append(path)
+        for inc in _LOCAL_INCLUDE.findall(path.read_bytes()):
+            if (path.parent / inc.decode()).is_file():
+                _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources(CSRC / SOURCES[name]):
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:

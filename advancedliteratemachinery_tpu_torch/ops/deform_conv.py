@@ -107,6 +107,16 @@ def deform_conv2d_plain(x: torch.Tensor, offsets: torch.Tensor,
     return out
 
 
+def pack_weights(weights: torch.Tensor) -> torch.Tensor:
+    """HWIO weights [kh, kw, Cin, Cout] → the kernel's [kh·kw, Cout, Cin8]:
+    each tap's matrix as [out, in] rows, Cin padded with zeros to Cin8, the
+    next multiple of 8, so that a row's pitch is a multiple of 16 bytes, as
+    TMA requires."""
+    kh, kw, cin, cout = weights.shape
+    wt = weights.permute(0, 1, 3, 2).reshape(kh * kw, cout, cin)
+    return F.pad(wt, (0, -cin % 8)).contiguous()
+
+
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
                   weights: torch.Tensor, bias: Optional[torch.Tensor] = None,
                   stride: int = 1, padding: int = 1,
@@ -146,8 +156,9 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
     _kernels.refuse_grad(KERNEL, *tensors)
     if not all(t.is_contiguous() for t in (x, offsets, mask)):
         raise ValueError("x, offsets and mask must be contiguous")
-    # the kernel reads each tap's weights as [Cout, Cin] rows
-    wt = weights.permute(0, 1, 3, 2).reshape(K, Cout, Cin).contiguous()
+    if offsets.data_ptr() % 4:       # read as (dy, dx) pairs
+        raise ValueError("offsets must be 4-byte aligned")
+    wt = pack_weights(weights)
     b = bias.contiguous() if bias is not None else None
     out = torch.empty((B, H, W, Cout), dtype=x.dtype, device=x.device)
     fn = _kernels.kernel_function(

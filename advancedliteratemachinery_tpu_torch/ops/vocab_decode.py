@@ -67,7 +67,7 @@ def matmul_greedy_decode(tokens: torch.Tensor, weight: torch.Tensor,
             "matmul_greedy_decode kernel takes bf16 tokens and weight with "
             f"D a multiple of 64; got {tokens.dtype}, {weight.dtype}, D={D}")
     _kernels.refuse_grad(KERNEL, tokens, weight, bias)
-    for t in (tokens, weight):
+    for t in (tokens, weight):       # TMA reads both tile by tile
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("tokens and weight must be contiguous and "
                              "16-byte aligned")

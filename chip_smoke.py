@@ -11,8 +11,10 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    small shapes (S = 17, 64, 100, 700);
 3. vocab matmul + greedy decode kernel against its plain version, at the
    BPE (V=50304, true 50257) and WordPiece (V=30592, true 30522) heads for
-   256 and 512 crops and at one shape off the tiles, with crafted rows
-   whose maximum is an exact tie;
+   256 and 512 crops and at shapes off its tiles (a single row, M = 127,
+   129, 300, true_vocab inside the last tile), with crafted rows whose
+   maximum is an exact tie, within a tile, across tiles and across a
+   chunk boundary;
 4. recognition only: MGP-STR-base at full width and depth (D=768, 12
    layers) with seeded random weights, B=256 crops/s and B=1 latency, an
    encoder check against a float32 run on the CPU, and `recognize()`;
@@ -24,7 +26,8 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    the device's idle share;
 6. modulated deformable conv kernel against its plain version, at the
    seven layer shapes of LORE's DLA neck at B=8 and 768² pages, at odd
-   shapes (pixels, Cin and Cout off every tile) and with offsets of ±40 px,
+   shapes (pixels, Cin and Cout off every tile: Cin 5, 8, 40, 200, 512,
+   Cout 7, 72, 100, 128, 200, 256, 300) and with offsets of ±40 px,
    samples wholly outside the image, a zero mask and offsets beyond ±3;
 7. LORE-TSR table structure, the second slice's main path: the full
    `LoreConfig()` (DLA-34 + DCN neck, six heads, Processor 4+4 layers) in
@@ -278,14 +281,17 @@ def check_mha(B, S, H, gen, time_it=False):
     return rec
 
 
-def check_decode(M, V, true_v, gen, time_it=True):
+def check_decode(M, V, true_v, gen, time_it=True, extra_pairs=()):
     D = 768
     tok = torch.randn(M, D, generator=gen, device="cuda")
     w = torch.randn(V, D, generator=gen, device="cuda") * 0.05
     b = torch.randn(V, generator=gen, device="cuda") * 0.1
     # crafted exact ties: columns j2 copy j1 (same tile, same chunk, other
-    # chunk), and row i is steered onto its pair; the lower index must win
-    pairs = [(3, 77), (200, 900), (1000, true_v - 60)]
+    # chunk; `extra_pairs` more), and row i is steered onto its pair; the
+    # lower index must win. As many pairs as there are rows and columns.
+    pairs = [(j1, j2) for j1, j2 in ((3, 77), (200, 900),
+                                     (1000, true_v - 60), *extra_pairs)
+             if j1 < j2 < true_v][:M]
     for i, (j1, j2) in enumerate(pairs):
         s = torch.sign(torch.randn(D, generator=gen, device="cuda")) * 0.5
         tok[i] = s
@@ -920,8 +926,16 @@ def main() -> int:
     check_attention(256, 257, 12, False, gen)
     k1 = check_attention(512, 257, 12, False, gen)      # e2e: 8 x 64 crops
     k1_err = k1["max_abs_err"]
-    k2_err = check_decode(300, 1200, 1190, gen, time_it=False)[
-        "max_abs_err"]                  # rows and columns off the tiles
+    # rows and columns off the 128 x 256 tiles and 2048-column chunks, a
+    # single row, true_vocab inside the last tile, ties across tiles and
+    # across a chunk boundary
+    k2_err = 0.0
+    for M, V, true_v, extra in ((300, 1200, 1190, ()),
+                                (127, 4100, 4097, ((255, 256), (2047, 2048))),
+                                (129, 2304, 2200, ((2047, 2048),)),
+                                (1, 30592, 30522, ())):
+        k2_err = max(k2_err, check_decode(M, V, true_v, gen, time_it=False,
+                                          extra_pairs=extra)["max_abs_err"])
     k2 = None
     for M in (6656, 13312):                               # 256 / 512 crops
         for V, true_v in ((50304, 50257), (30592, 30522)):
@@ -949,12 +963,20 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     k3_err = 0.0
+    # pixels off the 8 x 16 tiles, Cin off the 64-channel stages and the
+    # 8-channel vectors, Cout at N = 64, 128, 256 and two column blocks
     for B, H, Cin, Cout, case in ((3, 13, 40, 72, "normal"),
                                   (2, 37, 200, 100, "normal"),
                                   (1, 24, 5, 7, "normal"),
+                                  (1, 9, 200, 200, "normal"),
+                                  (2, 24, 512, 256, "normal"),
+                                  (1, 11, 64, 300, "normal"),
+                                  (3, 5, 8, 128, "normal"),
                                   (2, 48, 64, 64, "far"),
                                   (2, 48, 64, 64, "beyond3"),
                                   (2, 48, 64, 64, "outside"),
+                                  (1, 10, 5, 7, "outside"),
+                                  (1, 10, 512, 256, "outside"),
                                   (2, 48, 64, 64, "zero_mask")):
         k3_err = max(k3_err, check_deform_conv(B, H, H + 3, Cin, Cout, gen,
                                                case)["max_abs_err"])

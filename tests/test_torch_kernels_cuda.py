@@ -43,8 +43,12 @@ def test_attention_kernel_matches_plain(gen, B, S, H, safe):
     assert (out.float() - want).abs().max().item() <= 2e-2
 
 
-@pytest.mark.parametrize("M,V,true_v", [(300, 1200, 1190), (1, 128, 100),
-                                        (513, 2048, 2048)])
+# the kernel's tiles: 128 token rows, 256 vocab columns, chunks of 2048
+# columns merged in order; M and V on and off them, true_vocab inside the
+# last tile, and BPE's and WordPiece's padded heads
+@pytest.mark.parametrize("M,V,true_v", [
+    (300, 1200, 1190), (1, 128, 100), (513, 2048, 2048), (127, 4100, 4097),
+    (129, 2304, 2200), (1, 30592, 30522), (300, 50304, 50257)])
 def test_vocab_kernel_matches_plain(gen, M, V, true_v):
     D = 768
     tok = torch.randn(M, D, generator=gen, device="cuda")
@@ -66,6 +70,25 @@ def test_vocab_kernel_matches_plain(gen, M, V, true_v):
     torch.testing.assert_close(pmax, ppmax, rtol=1e-3, atol=0)
 
 
+@pytest.mark.parametrize("j1,j2", [(2047, 2048), (255, 256), (2000, 4000)])
+def test_vocab_kernel_tie_across_tiles_and_chunks(gen, j1, j2):
+    """An exact tie between columns in two 256-column tiles or two
+    2048-column chunks goes to the lower index, as in the plain version."""
+    M, D, V = 130, 768, 4224
+    tok = torch.randn(M, D, generator=gen, device="cuda")
+    w = torch.randn(V, D, generator=gen, device="cuda") * 0.05
+    b = torch.randn(V, generator=gen, device="cuda") * 0.1
+    for row in (0, 129):                 # first and last token tile
+        s = torch.sign(torch.randn(D, generator=gen, device="cuda")) * 0.5
+        tok[row] = s
+        w[j1] = w[j2] = 0.1 * s
+        b[j2] = b[j1]
+        ids, _ = matmul_greedy_decode(tok.bfloat16(), w.bfloat16(), b, V)
+        pids, _ = matmul_greedy_decode_plain(tok.bfloat16(), w.bfloat16(),
+                                             b, V)
+        assert int(ids[row]) == int(pids[row]) == j1
+
+
 def _dcn_inputs(gen, B, H, W, Cin, Cout, offset_scale):
     dev = "cuda"
     x = torch.randn(B, H, W, Cin, generator=gen, device=dev).bfloat16()
@@ -79,10 +102,16 @@ def _dcn_inputs(gen, B, H, W, Cin, Cout, offset_scale):
     return x, off, mask, w, b
 
 
+# the kernel's tiles: 8 x 16 pixels, 64 input channels a stage, N = 64, 128
+# or 256 output channels a block; pixels, Cin and Cout on and off them
 @pytest.mark.parametrize("B,H,W,Cin,Cout,offset_scale", [
     (2, 13, 29, 40, 72, 2.0),        # pixels, Cin and Cout off every tile
     (1, 24, 24, 5, 7, 1.5),          # Cin off the 8-channel vectors
-    (2, 48, 48, 64, 64, 15.0)])      # ±40 px: many samples off the image
+    (2, 48, 48, 64, 64, 15.0),       # ±40 px: many samples off the image
+    (1, 9, 17, 200, 200, 2.0),       # 3 stages + 8 channels; N = 256
+    (2, 24, 24, 512, 256, 2.0),      # LORE's 512 -> 256 layer, B = 2
+    (1, 11, 7, 64, 300, 2.0),        # two column blocks of 256
+    (3, 5, 3, 8, 128, 1.0)])         # 45 pixels: most of the tile idle
 def test_deform_conv_kernel_matches_plain(gen, B, H, W, Cin, Cout,
                                           offset_scale):
     x, off, mask, w, b = _dcn_inputs(gen, B, H, W, Cin, Cout, offset_scale)
@@ -98,6 +127,16 @@ def test_deform_conv_kernel_matches_plain(gen, B, H, W, Cin, Cout,
     assert out.shape == (B, H, W, Cout)
     assert (err.pow(2).mean().sqrt() / rms).item() <= 5e-3
     assert (err.max() / rms).item() <= 3e-2
+
+
+@pytest.mark.parametrize("Cin,Cout", [(5, 7), (40, 72), (200, 200),
+                                      (512, 256)])
+def test_deform_conv_kernel_outside_gives_the_bias(gen, Cin, Cout):
+    """Every sample wholly off the image: each output is exactly the
+    bias (a zero sum, rounded, plus the bias in bf16)."""
+    x, off, mask, w, b = _dcn_inputs(gen, 1, 10, 19, Cin, Cout, 1.0)
+    out = deform_conv2d(x, torch.full_like(off, 1000.0), mask, w, b)
+    assert torch.equal(out, b.expand_as(out))
 
 
 def test_kernels_reject_unsupported_inputs(gen):
