@@ -8,7 +8,10 @@
 // with the 16-byte chunks of row r permuted as chunk ^ (r % 8). That is
 // what TMA writes with CU_TENSOR_MAP_SWIZZLE_128B and what a wgmma
 // descriptor of layout type 1 (128-byte swizzle) reads; a kernel that
-// writes such a tile with its own threads uses `sw128_offset`.
+// writes such a tile with its own threads uses `sw128_offset`. The same
+// tile serves wgmma both as a K-major operand (rows = M or N, 128 bytes of
+// K each: `desc_sw128`) and, with the transpose bit, as an MN-major B
+// (rows = K, 128 bytes of N each: `desc_sw128_mn`), as attention's V.
 
 #pragma once
 
@@ -97,6 +100,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
            "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2) : "memory");
 }
 
+// 4-D tile at element coordinates (c0 innermost, ..., c3), as tma_load_2d
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+        ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+        :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+           "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+
 // order this thread's generic-proxy shared-memory writes before later
 // async-proxy reads (wgmma) of the same bytes
 __device__ __forceinline__ void fence_proxy_async() {
@@ -117,6 +132,19 @@ __device__ __forceinline__ void named_bar_sync(int id, int count) {
 __device__ __forceinline__ uint64_t desc_sw128(const void* p) {
     return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4)
            | (static_cast<uint64_t>(1) << 16)
+           | (static_cast<uint64_t>(1024 >> 4) << 32)
+           | (static_cast<uint64_t>(1) << 62);
+}
+
+// descriptor of the same tile read as an MN-major operand (wgmma's
+// transpose bit set): rows are K, each 128 bytes of N = 64. Its 8-row
+// groups along K lie 1024 bytes apart; the other offset, between 64-wide
+// blocks of N, is never used at N = 64. The two offset fields swap roles
+// between the K-major and the MN-major layout, so both hold 1024 bytes.
+// Adding 128 to it steps 16 rows (16 K) on.
+__device__ __forceinline__ uint64_t desc_sw128_mn(const void* p) {
+    return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4)
+           | (static_cast<uint64_t>(1024 >> 4) << 16)
            | (static_cast<uint64_t>(1024 >> 4) << 32)
            | (static_cast<uint64_t>(1) << 62);
 }
@@ -143,6 +171,63 @@ template <int R>
 __device__ __forceinline__ void fence_operands(float (&d)[R]) {
 #pragma unroll
     for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+template <int R, int C>
+__device__ __forceinline__ void fence_operands(uint32_t (&a)[R][C]) {
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int j = 0; j < C; ++j)
+            asm volatile("" : "+r"(a[i][j]) :: "memory");
+}
+
+// d[0:8] (+)= a[64 x 16] . b[16 x 16]^T; a, b K-major bf16 in shared memory
+// (128-byte swizzle descriptors), f32 accumulate; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t a,
+                                                uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d[0:32] (+)= a[64 x 16] . b[16 x 64] with a in registers and b MN-major
+// in shared memory (`desc_sw128_mn`: rows = the 16 K, 128 bytes of N
+// each), f32 accumulate. Each warp w of the warpgroup holds rows 16w..+15
+// of a in the A-fragment layout of mma.sync m16n8k16: a[0] (row g, k 2t,
+// 2t+1), a[1] (g + 8, 2t), a[2] (g, 2t + 8), a[3] (g + 8, 2t + 8), with
+// g = lane / 4, t = lane % 4. That is the accumulator layout of an m64nN
+// wgmma, so an f32 product tile repacked as bf16 pairs (accumulators 8k..
+// 8k+7 give the A fragment of K columns 16k..16k+15) feeds this one
+// without a trip through shared memory.
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, "
+        "%8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+          "r"(scale_d));
 }
 
 // d[0:32] (+)= a[64 x 16] . b[64 x 16]^T; a, b K-major bf16 in shared
@@ -335,11 +420,12 @@ __device__ __forceinline__ void wgmma_m64n256k16_2x128(float (&d)[128],
         : "l"(a), "l"(b), "l"(b + 1024), "r"(scale_d));
 }
 
-// d (+)= a[64 x 16] . b[N x 16]^T for N in {64, 128, 256}
+// d (+)= a[64 x 16] . b[N x 16]^T for N in {16, 64, 128, 256}
 template <int N>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a,
                                            uint64_t b, int scale_d) {
-    if constexpr (N == 64) wgmma_m64n64k16(d, a, b, scale_d);
+    if constexpr (N == 16) wgmma_m64n16k16(d, a, b, scale_d);
+    else if constexpr (N == 64) wgmma_m64n64k16(d, a, b, scale_d);
     else if constexpr (N == 128) wgmma_m64n128k16(d, a, b, scale_d);
     else wgmma_m64n256k16(d, a, b, scale_d);
 }

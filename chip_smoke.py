@@ -8,7 +8,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 1. build the CUDA kernels from `advancedliteratemachinery_tpu_torch/csrc/`;
 2. fused-qkv attention kernel against its plain version, at the recognizer's
    shapes (B=256 and 512, S=257, D=768, H=12, safe and unsafe) and at odd
-   small shapes (S = 17, 64, 100, 700);
+   small shapes (S = 17, 64, 100, 700, and 1, 63, 65, 129, 257, 320, 768
+   on either side of its 64-row tiles and 16-key short last chunk, safe
+   and unsafe); two calls on the same input must give the same bits; K1
+   and K5 timed at S=272 and S=273, which differ only in the form of the
+   last key chunk (16 keys: the short form; 17: the full one);
 3. vocab matmul + greedy decode kernel against its plain version, at the
    BPE (V=50304, true 50257) and WordPiece (V=30592, true 30522) heads for
    256 and 512 crops and at shapes off its tiles (a single row, M = 127,
@@ -40,7 +44,11 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    (B=128, S=257, H=12), timed beside the backward of
    `scaled_dot_product_attention`;
 9. short-sequence MHA kernel (K5) on strided q/k/v views against its plain
-   version at S = 17, 300, 1000, 257 (B=128) and 1024;
+   version at S = 17, 300, 1000, 257 (B=128) and 1024, and at S = 1, 64,
+   65, 257, 513, 640, 1024 (both sides of its resident/streamed threshold)
+   with q, k, v as views of one projection, as q plus views of a kv
+   projection, and as [B, H, S, 64] tensors through `.transpose(1, 2)`;
+   two calls on the same input must give the same bits;
 10. MGP-STR-base training, the third slice's main path (`bench.py`'s
     train_bench setting: B=128, seeded uint8 crops and char/BPE/WordPiece
     ids, Adam at lr 1e-4 on a 1000-step cosine, clip 5.0, bf16 compute,
@@ -184,26 +192,49 @@ def check_attention(B, S, H, safe, gen, time_it=True):
     D = H * 64
     qkv = torch.randn(B, S, 3 * D, generator=gen, device="cuda").bfloat16()
     out = fused_qkv_attention(qkv, H, safe=safe)
+    again = fused_qkv_attention(qkv, H, safe=safe)
     qkv32 = qkv.float()
     want = fused_qkv_attention_plain(qkv32, H, safe=safe)
     torch.cuda.synchronize()
     err = (out.float() - want).abs().max().item()
     rec = {"phase": "attention", "B": B, "S": S, "H": H, "safe": safe,
-           "max_abs_err": err, "tol": K1_TOL}
-    require(out.shape == (B, S, D) and err <= K1_TOL,
+           "max_abs_err": err, "tol": K1_TOL,
+           "repeat_equal": torch.equal(out, again)}
+    require(out.shape == (B, S, D) and err <= K1_TOL and rec["repeat_equal"],
             f"fused_qkv_attention disagrees with its plain version: {rec}")
     if time_it:
-        q, k, v = (t.contiguous() for t in
-                   qkv.view(B, S, 3, H, 64).permute(2, 0, 3, 1, 4))
+        views = qkv.view(B, S, 3, H, 64).permute(2, 0, 3, 1, 4)
+        q, k, v = (t.contiguous() for t in views)
         rec["ms"] = cuda_ms(lambda: fused_qkv_attention(qkv, H, safe=safe))
         rec["plain_ms"] = cuda_ms(
             lambda: fused_qkv_attention_plain(qkv32, H, safe=safe), iters=3)
+        # yardsticks: SDPA on contiguous BHSD copies made outside the timed
+        # window, and SDPA on strided views of qkv, the bytes K1 reads
         rec["library_ms"] = cuda_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v))
+        rec["library_strided_ms"] = cuda_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(*views))
         rec["bound_ms"], rec["bound_by"] = bound(
             B * S * 4 * D * 2, 4 * B * H * S * S * 64)
     emit(rec)
     return rec
+
+
+def short_tail_probe(gen):
+    """Whether the short form of the last key chunk pays: S=272 ends on a
+    16-key chunk (Q K^T by m64n16k16, one P V step), S=273 on a 17-key one
+    (the full m64n64k16 form); both have 5 query tiles and 5 chunks and
+    differ by one key in bytes. K1 unsafe at B=256, K5 at B=128, H=12."""
+    rec = {"phase": "attention_short_tail"}
+    for S in (272, 273):
+        qkv = torch.randn(256, S, 3 * 768, generator=gen,
+                          device="cuda").bfloat16()
+        rec[f"k1_ms_s{S}"] = cuda_ms(
+            lambda: fused_qkv_attention(qkv, 12, safe=False), iters=20)
+        q, k, v = qkv[:128].view(128, S, 3, 12, 64).unbind(2)
+        rec[f"k5_ms_s{S}"] = cuda_ms(lambda: mha_short_seq(q, k, v),
+                                     iters=20)
+    emit(rec)
 
 
 def rel_errors(got, want):
@@ -253,20 +284,36 @@ def check_attention_bwd(B, S, H, gen, time_it=False):
     return rec
 
 
-def check_mha(B, S, H, gen, time_it=False):
-    """K5 against its plain version in f32 on the same bf16 inputs; q, k, v
-    are strided views of one [B, S, 3, H, 64] projection, read in place."""
-    qkv = torch.randn(B, S, 3, H, 64, generator=gen, device="cuda").bfloat16()
-    q, k, v = qkv.unbind(2)
+def mha_inputs(B, S, H, gen, layout):
+    """q, k, v [B, S, H, 64] bf16 read in place by K5: views of one
+    [B, S, 3, H, 64] projection ("qkv"), a contiguous q beside views of a
+    [B, S, 2, H, 64] kv projection ("q+kv"), or [B, H, S, 64] tensors
+    through `.transpose(1, 2)` ("bhsd")."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    if layout == "qkv":
+        return randn(B, S, 3, H, 64).unbind(2)
+    if layout == "q+kv":
+        return (randn(B, S, H, 64), *randn(B, S, 2, H, 64).unbind(2))
+    return tuple(randn(B, H, S, 64).transpose(1, 2) for _ in range(3))
+
+
+def check_mha(B, S, H, gen, time_it=False, layout="qkv"):
+    """K5 against its plain version in f32 on the same bf16 inputs, read
+    in place through their strides (`mha_inputs`)."""
+    q, k, v = mha_inputs(B, S, H, gen, layout)
     out = mha_short_seq(q, k, v)
+    again = mha_short_seq(q, k, v)
     f32 = [t.float() for t in (q, k, v)]
     want = mha_short_seq_plain(*f32)
     torch.cuda.synchronize()
     rec = {"phase": "mha_short_seq", "B": B, "S": S, "H": H,
+           "layout": layout,
            "max_abs_err": (out.float() - want).abs().max().item(),
-           "tol": K1_TOL}
+           "tol": K1_TOL, "repeat_equal": torch.equal(out, again)}
     rec["rel_rms_err"] = rel_errors(out, want)[0]
-    require(out.shape == (B, S, H, 64) and rec["max_abs_err"] <= K1_TOL,
+    require(out.shape == (B, S, H, 64) and rec["max_abs_err"] <= K1_TOL
+            and rec["repeat_equal"],
             f"mha_short_seq disagrees with its plain version: {rec}")
     if time_it:
         rec["ms"] = cuda_ms(lambda: mha_short_seq(q, k, v))
@@ -559,7 +606,12 @@ def profile_steps(phase, steps, step_ms=None):
            "device_idle_share": (1.0 - busy_ms / wall_ms) if wall_ms else None,
            "top_device_ms_per_step": [
                [e.key[:90], e.self_device_time_total / 1e3 / len(steps)]
-               for e in top]}
+               for e in top],
+           # the port's own kernels (declared in anonymous namespaces)
+           "port_kernels_ms_per_step": [
+               [e.key[:90], e.self_device_time_total / 1e3 / len(steps)]
+               for e in device
+               if e.key.removeprefix("void ").startswith("(anonymous namespace)")]}
     if step_ms is not None:
         rec["unprofiled_step_ms"] = step_ms
         rec["device_idle_share_unprofiled"] = (
@@ -914,7 +966,7 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = _kernels.build()
     ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln or "wgmma" in ln]
              for n, log in _kernels.BUILD_LOG.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": seconds, "ptxas": ptxas})
@@ -922,10 +974,15 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     for B, S, H in ((3, 17, 2), (2, 64, 1), (4, 100, 3), (2, 700, 2)):
         check_attention(B, S, H, True, gen, time_it=False)
+    # both sides of the 64-row tiles, a 16-key short last chunk, S=768
+    for S in (1, 63, 64, 65, 129, 257, 320, 768):
+        for safe in (True, False):
+            check_attention(3, S, 5, safe, gen, time_it=False)
     check_attention(256, 257, 12, True, gen)
     check_attention(256, 257, 12, False, gen)
     k1 = check_attention(512, 257, 12, False, gen)      # e2e: 8 x 64 crops
     k1_err = k1["max_abs_err"]
+    short_tail_probe(gen)
     # rows and columns off the 128 x 256 tiles and 2048-column chunks, a
     # single row, true_vocab inside the last tile, ties across tiles and
     # across a chunk boundary
@@ -1011,6 +1068,11 @@ def main() -> int:
     mha_err = 0.0
     for B, S, H in ((3, 17, 2), (2, 300, 3), (1, 1000, 2)):
         mha_err = max(mha_err, check_mha(B, S, H, gen)["max_abs_err"])
+    # resident (S <= 320) and streamed, in each layout K5 reads in place
+    for S in (1, 64, 65, 257, 513, 640, 1024):
+        for layout in ("qkv", "q+kv", "bhsd"):
+            mha_err = max(mha_err, check_mha(2, S, 3, gen, layout=layout)[
+                "max_abs_err"])
     k5 = check_mha(128, 257, 12, gen, time_it=True)
     k5_long = check_mha(16, 1024, 12, gen, time_it=True)
     mha_err = max(mha_err, k5["max_abs_err"], k5_long["max_abs_err"])
@@ -1026,7 +1088,12 @@ def main() -> int:
          "launches": counts["fused_qkv_attention"], "max_abs_err": k1_err,
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
-         "library_ms": k1["library_ms"], "shape": "B=512 S=257 D=768 H=12"},
+         "library_ms": k1["library_ms"],
+         "library_strided_ms": k1["library_strided_ms"],
+         "library": "scaled_dot_product_attention on contiguous BHSD "
+                    "copies (library_ms) and on strided views of qkv "
+                    "(library_strided_ms)",
+         "shape": "B=512 S=257 D=768 H=12"},
         {"name": "vocab_greedy_decode", "route": "cuda", "source": DECODE_SRC,
          "replaces": "advancedliteratemachinery_tpu/ops/vocab_decode.py:39",
          "launches": counts["vocab_greedy_decode"], "max_abs_err": k2_err,

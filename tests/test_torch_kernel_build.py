@@ -22,11 +22,15 @@ def csrc_copy(tmp_path, monkeypatch):
     return dst
 
 
-@pytest.mark.parametrize("name", ["vocab_greedy_decode", "deform_conv"])
-def test_lib_path_follows_included_header(csrc_copy, name):
+@pytest.mark.parametrize("name,headers", [
+    ("vocab_greedy_decode", ["sm90_common.cuh"]),
+    ("deform_conv", ["sm90_common.cuh"]),
+    ("fused_qkv_attention", ["sm90_attention.cuh", "sm90_common.cuh"]),
+    ("mha_short_seq", ["sm90_attention.cuh", "sm90_common.cuh"])])
+def test_lib_path_follows_included_header(csrc_copy, name, headers):
     sources = [p.name for p in _kernels._sources(csrc_copy
                                                  / _kernels.SOURCES[name])]
-    assert sources == [_kernels.SOURCES[name], "sm90_common.cuh"]
+    assert sources == [_kernels.SOURCES[name], *headers]
     before = _kernels._lib_path(name)
     assert _kernels._lib_path(name) == before          # stable
     header = csrc_copy / "sm90_common.cuh"
@@ -35,10 +39,20 @@ def test_lib_path_follows_included_header(csrc_copy, name):
 
 
 def test_lib_path_ignores_headers_a_source_does_not_include(csrc_copy):
-    before = _kernels._lib_path("fused_qkv_attention")
-    header = csrc_copy / "sm90_common.cuh"
+    before = _kernels._lib_path("fused_qkv_attention_bwd")
+    for name in ("sm90_common.cuh", "sm90_attention.cuh"):
+        header = csrc_copy / name
+        header.write_text(header.read_text() + "\n// edited\n")
+    assert _kernels._lib_path("fused_qkv_attention_bwd") == before
+
+
+def test_attention_core_edit_rebuilds_k1_and_k5_only(csrc_copy):
+    names = list(_kernels.SOURCES)
+    before = {n: _kernels._lib_path(n) for n in names}
+    header = csrc_copy / "sm90_attention.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    assert _kernels._lib_path("fused_qkv_attention") == before
+    changed = {n for n in names if _kernels._lib_path(n) != before[n]}
+    assert changed == {"fused_qkv_attention", "mha_short_seq"}
 
 
 @pytest.mark.parametrize("cin,cout", [(5, 7), (8, 3), (13, 16)])

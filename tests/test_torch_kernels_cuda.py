@@ -29,9 +29,14 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+# K1's 64-row query tiles and 64-key chunks (a last chunk of at most 16
+# keys takes the short form), on and off them; B·H = 15 heads, one block
+# each
 @pytest.mark.parametrize("B,S,H,safe", [
     (3, 17, 2, True), (3, 17, 2, False), (2, 64, 1, True),
-    (4, 100, 3, False), (2, 257, 12, True), (1, 700, 2, True)])
+    (4, 100, 3, False), (2, 257, 12, True), (1, 700, 2, True)] + [
+    (3, S, 5, safe) for S in (1, 63, 64, 65, 129, 257, 320, 768)
+    for safe in (True, False)])
 def test_attention_kernel_matches_plain(gen, B, S, H, safe):
     qkv = torch.randn(B, S, 3 * H * 64, generator=gen,
                       device="cuda").bfloat16()
@@ -39,8 +44,11 @@ def test_attention_kernel_matches_plain(gen, B, S, H, safe):
     out = fused_qkv_attention(qkv, H, safe=safe)
     assert _kernels.LAUNCHES["fused_qkv_attention"] == before + 1
     want = fused_qkv_attention_plain(qkv.float(), H, safe=safe)
+    assert out.shape == (B, S, H * 64)
     # bf16 output rounding and bf16 probabilities before the product
     assert (out.float() - want).abs().max().item() <= 2e-2
+    # no atomics: the same input gives the same bits
+    assert torch.equal(out, fused_qkv_attention(qkv, H, safe=safe))
 
 
 # the kernel's tiles: 128 token rows, 256 vocab columns, chunks of 2048
@@ -192,18 +200,38 @@ def test_attention_autograd_launches_k1_and_k4(gen):
                        fused_qkv_attention_bwd(qkv.detach(), g, 2))
 
 
-@pytest.mark.parametrize("B,S,H", [(3, 17, 2), (2, 300, 3)])
-def test_mha_kernel_matches_plain(gen, B, S, H):
-    qkv = torch.randn(B, S, 3, H, 64, generator=gen,
-                      device="cuda").bfloat16()
-    q, k, v = qkv.unbind(2)               # strided views, read in place
+def _mha_inputs(gen, B, S, H, layout):
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    if layout == "qkv":            # views of one projection
+        return randn(B, S, 3, H, 64).unbind(2)
+    if layout == "q+kv":           # three allocations, different strides
+        return (randn(B, S, H, 64), *randn(B, S, 2, H, 64).unbind(2))
+    if layout == "bhsd":           # [B, H, S, 64] through .transpose(1, 2)
+        return tuple(randn(B, H, S, 64).transpose(1, 2) for _ in range(3))
+    # "expand": k and v broadcast over the batch (batch stride 0)
+    k, v = (randn(1, S, H, 64).expand(B, S, H, 64) for _ in range(2))
+    return randn(B, S, H, 64), k, v
+
+
+# K5 resident (a head's K and V in shared memory, S <= 320) and streamed
+# (a 4-stage ring), each reading its operands in place
+@pytest.mark.parametrize("B,S,H,layout", [
+    (3, 17, 2, "qkv"), (2, 300, 3, "qkv"), (3, 257, 2, "expand"),
+    (3, 640, 2, "expand")] + [
+    (2, S, 3, layout) for S in (1, 64, 65, 257, 513, 640, 1024)
+    for layout in ("qkv", "q+kv", "bhsd")])
+def test_mha_kernel_matches_plain(gen, B, S, H, layout):
+    q, k, v = _mha_inputs(gen, B, S, H, layout)
     before = _kernels.LAUNCHES["mha_short_seq"]
     out = mha_short_seq(q, k, v)
     assert _kernels.LAUNCHES["mha_short_seq"] == before + 1
     want = mha_short_seq_plain(q.float(), k.float(), v.float())
     # bf16 probabilities and output
-    assert out.shape == (B, S, H, 64)
+    assert out.shape == (B, S, H, 64) and out.is_contiguous()
     assert (out.float() - want).abs().max().item() <= 2e-2
+    # no atomics: the same input gives the same bits
+    assert torch.equal(out, mha_short_seq(q, k, v))
 
 
 def test_new_kernels_reject_unsupported_inputs(gen):
