@@ -2,10 +2,13 @@
 `advancedliteratemachinery_tpu/engine/infer.py` `MGPSTRInference`).
 
 On the device: normalize → forward → greedy ids and cumulative confidence
-per head. The BPE and WordPiece heads go through the fused vocab kernel
-(`ops/vocab_decode.py`), so their [B, T, V] logits never reach memory; the
-small char head is decoded in plain tensor code. On the host: id → string
-decode and the fusion that picks the most confident head.
+per head. With `fused_decode="auto"` a head goes through the fused vocab
+kernel (`ops/vocab_decode.py`), so that its [B, T, V] logits never reach
+memory, wherever `supports_fused_decode` passes: on the card in bf16, the
+BPE and WordPiece heads. Every other head, and every head under
+`fused_decode="never"`, is decoded in plain tensor code from its logits.
+On the host: id → string decode and the fusion that picks the most
+confident head.
 """
 
 from __future__ import annotations
@@ -22,12 +25,11 @@ from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.models.layers import linear
 from advancedliteratemachinery_tpu_torch.ops.image import normalize_crops
 from advancedliteratemachinery_tpu_torch.ops.vocab_decode import (
-    matmul_greedy_decode)
+    matmul_greedy_decode, supports_fused_decode)
 
 # per-head EOS ids (char [s]=1, GPT-2 BPE eos=2 in the MGP-STR layout,
 # BERT [SEP]=102)
 EOS_IDS = {"char": 1, "bpe": 2, "wp": 102}
-FUSED_HEADS = ("bpe", "wp")
 
 
 class MGPSTRInference:
@@ -36,11 +38,16 @@ class MGPSTRInference:
     The engine keeps its own copy of `model`, on `device` (the GPU unless
     `device="cpu"`), with the inference policy — logits in the compute
     dtype and the unsafe-softmax attention — and every weight cast to the
-    compute dtype once."""
+    compute dtype once. `fused_decode` is the JAX engine's: "auto" fuses
+    each head that `supports_fused_decode` admits, "never" none."""
 
     def __init__(self, model, codec: CharCodec, bpe_codec=None,
                  wp_codec=None, input_dtype: torch.dtype = torch.bfloat16,
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 fused_decode: str = "auto"):
+        if fused_decode not in ("auto", "never"):
+            raise ValueError(f"fused_decode must be 'auto' or 'never', got "
+                             f"{fused_decode!r}")
         self.device = resolve_device(device)
         pol = dataclasses.replace(
             model.policy, output_dtype=model.policy.compute_dtype,
@@ -60,7 +67,12 @@ class MGPSTRInference:
                            "bpe": cfg.bpe_vocab_size,
                            "wp": cfg.wp_vocab_size}
         self.heads = tuple(cfg.heads)
-        self.fused_heads = tuple(h for h in self.heads if h in FUSED_HEADS)
+        dim = cfg.vit_config().embed_dim
+        self.fused_heads = tuple(
+            h for h in self.heads if fused_decode == "auto"
+            and supports_fused_decode(dim,
+                                      cfg.padded_vocab(self.true_vocab[h]),
+                                      pol.compute_dtype, self.device))
 
     @torch.inference_mode()
     def _decode_all(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:

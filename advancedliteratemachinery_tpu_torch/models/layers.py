@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy, gelu)
 from advancedliteratemachinery_tpu_torch.ops.attention import (
-    attention, fused_qkv_attention)
+    attention, fused_qkv_attention, supports_fused_qkv)
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
 BN_EPS = 1e-5   # flax nn.BatchNorm default
@@ -155,11 +155,15 @@ class Mlp(nn.Module):
 
 
 class MultiHeadSelfAttention(nn.Module):
-    """One fused qkv projection; with no mask the attention itself is the
-    fused kernel (`ops/attention.py`), reading the projection output in its
-    [B, N, 3D] q|k|v layout and differentiable through its backward kernel.
-    `proj_dropout` follows the output projection; as in the JAX package the
-    attention probabilities themselves are never dropped."""
+    """One fused qkv projection. With no mask, and where
+    `supports_fused_qkv` passes (CUDA, bf16, head dim 64, 8 ≤ N ≤ 768), the
+    attention itself is the fused kernel (`ops/attention.py`), reading the
+    projection output in its [B, N, 3D] q|k|v layout and differentiable
+    through its backward kernel; otherwise (a mask, the CPU, f32, another
+    head dim, N < 8 or N > 768) it is the plain `attention` on q, k, v, as
+    the JAX module's einsum branch. `proj_dropout` follows the output
+    projection; as in the JAX package the attention probabilities
+    themselves are never dropped."""
 
     def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
                  proj_dropout: float = 0.0, policy: Policy = DEFAULT_POLICY):
@@ -176,7 +180,8 @@ class MultiHeadSelfAttention(nn.Module):
         H = self.num_heads
         c = self.policy.compute_dtype
         qkv = linear(x, self.qkv, c)
-        if mask is None:
+        if mask is None and supports_fused_qkv(N, D, H, qkv.dtype,
+                                               qkv.device):
             out = fused_qkv_attention(qkv, H,
                                       safe=not self.policy.unsafe_softmax)
         else:

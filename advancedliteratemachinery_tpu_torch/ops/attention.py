@@ -14,6 +14,8 @@ Port of `advancedliteratemachinery_tpu/ops/attention.py`:
   [B, S, H, hd] and reads them in place through their strides.
 - `attention` is the plain masked einsum path for callers holding separate
   q/k/v; it never calls a kernel, as in the JAX package.
+- `supports_fused_qkv` is the eligibility check a module asks before it
+  takes K1/K4, as the JAX module asks its namesake.
 
 On a CUDA tensor each wrapper launches its hand-written kernel under
 `csrc/` or raises `ValueError`; on a CPU tensor it runs the plain version
@@ -23,6 +25,7 @@ beside it, which is also the kernel's reference on the card.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -71,6 +74,20 @@ def _check_dense(name: str, *tensors: torch.Tensor) -> None:
 
 
 # ---------------------------------------------------------------- K1 + K4
+
+
+def supports_fused_qkv(seq: int, dim: int, num_heads: int,
+                       dtype: torch.dtype, device) -> bool:
+    """Whether a module may send qkv [B, seq, 3·dim] to K1 (and K4 under
+    grad): the JAX package's `supports_fused_qkv` (head dim a multiple of
+    64, seq ≥ 8, never on the CPU) narrowed to what the port's kernels take
+    (a CUDA tensor, bf16, head dim 64, seq ≤ MAX_SEQ). A head dim of 128,
+    which the TPU kernel takes, goes to the plain path here. The JAX check's
+    VMEM budget (`_choose_group`) has no counterpart: a block holds one
+    head."""
+    return (torch.device(device).type == "cuda" and dtype == torch.bfloat16
+            and dim % num_heads == 0 and dim // num_heads == HEAD_DIM
+            and 8 <= seq <= MAX_SEQ)
 
 
 def fused_qkv_attention_plain(qkv: torch.Tensor, num_heads: int,
@@ -159,17 +176,27 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
                          f"{dout.dtype} on {dout.device}")
     _check_dense(BWD_KERNEL, qkv, dout)
     dqkv = torch.empty_like(qkv)
-    # per (b, h, row): the log2-sum-exp of the scores and rowsum(dP ⊙ P),
-    # written by the row pass and read by the column pass
-    stats = torch.empty((B, num_heads, S, 2), dtype=torch.float32,
-                        device=qkv.device)
+    # per (b, h, row), rows padded to the kernel's 64-row tiles: the
+    # log2-sum-exp of the scores and rowsum(dP ⊙ P), written by the row
+    # pass and read by the column pass
+    stats = torch.empty((B, num_heads, -(-S // 64) * 64, 2),
+                        dtype=torch.float32, device=qkv.device)
+    # The kernel scales its f32 products by a power-of-two scale, which is
+    # bit-identical to rounding q·scale to bf16 first; for any other scale
+    # it takes qs = bf16(q·scale), rounded here as the plain version rounds
+    # it.
+    qs = None
+    if math.frexp(scale)[0] != 0.5:
+        qs = (qkv[..., :D] * scale).contiguous()
     fn = _kernels.kernel_function(
         BWD_KERNEL, "alm_fused_qkv_attention_bwd",
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-        + [ctypes.c_float, ctypes.c_void_p])
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     stream = torch.cuda.current_stream(qkv.device).cuda_stream
-    err = fn(qkv.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-             stats.data_ptr(), B, S, num_heads, scale, stream)
+    err = fn(qkv.data_ptr(), dout.data_ptr(),
+             None if qs is None else qs.data_ptr(), dqkv.data_ptr(),
+             stats.data_ptr(), B, S, num_heads, scale,
+             qkv.device.index or 0, stream)
     _kernels.check(BWD_KERNEL, err)
     _kernels.LAUNCHES[BWD_KERNEL] += 1
     return dqkv
@@ -275,7 +302,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     [B, S, H, hd] (the JAX package's `attention`): einsum scores, masked
     positions set to the f32 minimum, f32 softmax rounded to the input
     dtype. Plain tensor code on every device; self-attention in the
-    transformer blocks takes `fused_qkv_attention` instead."""
+    transformer blocks takes `fused_qkv_attention` wherever
+    `supports_fused_qkv` passes, and this otherwise."""
     hd = q.shape[-1]
     scale = hd ** -0.5 if scale is None else float(scale)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale

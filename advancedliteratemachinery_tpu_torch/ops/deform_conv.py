@@ -15,7 +15,8 @@ grid loses the bilinear fraction past x=64.
 On a CUDA tensor `deform_conv2d` launches the hand-written kernel in
 `csrc/deform_conv.cu`, which is exact for every offset; on a CPU tensor it
 runs the plain version below, which is also the kernel's reference on the
-card. The JAX package's windowed sampler, sparse correction and fallback
+card. `DeformConv2d` asks `supports_deform_conv` which of the two to
+take. The JAX package's windowed sampler, sparse correction and fallback
 exist only to make its TPU kernel exact and have no counterpart here.
 """
 
@@ -117,6 +118,25 @@ def pack_weights(weights: torch.Tensor) -> torch.Tensor:
     return F.pad(wt, (0, -cin % 8)).contiguous()
 
 
+def supports_deform_conv(x_shape: Tuple[int, ...],
+                         w_shape: Tuple[int, ...], stride: int, padding: int,
+                         dilation: int, dtype: torch.dtype, device) -> bool:
+    """Whether a module may send a DCN with input x [B, H, W, Cin] and
+    weights [kh, kw, Cin, Cout] to the kernel: the stride and padding
+    clauses of the JAX package's `dcn_windowed_pallas_supported` (stride 1,
+    2·padding == dilation·(k − 1) on both axes: a same-size output) on a
+    CUDA device in bf16, within the kernel's 32-bit element offsets. The
+    JAX check's VMEM budget has no counterpart: the kernel streams its
+    input."""
+    B, H, W, Cin = x_shape
+    kh, kw, _, Cout = w_shape
+    pixels = B * H * W
+    return (torch.device(device).type == "cuda" and dtype == torch.bfloat16
+            and stride == 1 and 2 * padding == dilation * (kh - 1)
+            and 2 * padding == dilation * (kw - 1)
+            and pixels * max(2 * Cin, Cout, 2 * kh * kw) < 2 ** 31)
+
+
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
                   weights: torch.Tensor, bias: Optional[torch.Tensor] = None,
                   stride: int = 1, padding: int = 1,
@@ -178,10 +198,13 @@ class DeformConv2d(nn.Module):
     """3x3, stride-1 DCN layer (JAX `DeformConv2d` at its defaults, the one
     form DLA's neck uses; reference DCN dcn_v2.py:147): a plain conv
     predicts 27 channels, split as flax splits them — dy [0, 9), dx [9, 18),
-    mask logits [18, 27) — then `deform_conv2d` samples and contracts.
-    Takes and returns NHWC. Offsets and mask are cast to the compute dtype
-    before sampling; the bias is added in the output dtype. `weight` is
-    OIHW, as `engine/convert.py` carries the flax `kernel`."""
+    mask logits [18, 27) — then `deform_conv2d` samples and contracts where
+    `supports_deform_conv` passes (the card, bf16), and
+    `deform_conv2d_plain` otherwise (the CPU, f32), as the JAX dispatch
+    takes its Pallas kernel only where its check passes. Takes and returns
+    NHWC. Offsets and mask are cast to the compute dtype before sampling;
+    the bias is added in the output dtype. `weight` is OIHW, as
+    `engine/convert.py` carries the flax `kernel`."""
 
     def __init__(self, in_ch: int, features: int,
                  policy: Policy = DEFAULT_POLICY):
@@ -199,6 +222,7 @@ class DeformConv2d(nn.Module):
                       com.bias.to(c), padding=1).permute(0, 2, 3, 1)
         offsets = torch.stack([om[..., :9], om[..., 9:18]], dim=-1)
         mask = torch.sigmoid(om[..., 18:]).contiguous()
-        return deform_conv2d(x.contiguous(), offsets, mask,
-                             self.weight.to(c).permute(2, 3, 1, 0),
-                             self.bias.to(c))
+        w = self.weight.to(c).permute(2, 3, 1, 0)
+        conv = (deform_conv2d if supports_deform_conv(
+            x.shape, w.shape, 1, 1, 1, c, x.device) else deform_conv2d_plain)
+        return conv(x.contiguous(), offsets, mask, w, self.bias.to(c))

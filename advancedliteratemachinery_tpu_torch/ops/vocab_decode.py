@@ -43,6 +43,17 @@ def matmul_greedy_decode_plain(tokens: torch.Tensor, weight: torch.Tensor,
     return ids.to(torch.int32), pmax
 
 
+def supports_fused_decode(dim: int, vocab: int, dtype: torch.dtype,
+                          device) -> bool:
+    """Whether an inference engine may fuse a head of padded width `vocab`
+    through the kernel: the JAX package's `supports_fused_decode` (vocab a
+    multiple of 128 and at least 1024, dim a multiple of 8, never on the
+    CPU) narrowed to the kernel's own limits (a CUDA device, bf16 tokens
+    and weight, dim a multiple of 64)."""
+    return (torch.device(device).type == "cuda" and dtype == torch.bfloat16
+            and vocab % 128 == 0 and vocab >= 1024 and dim % 64 == 0)
+
+
 def matmul_greedy_decode(tokens: torch.Tensor, weight: torch.Tensor,
                          bias: Optional[torch.Tensor], true_vocab: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:

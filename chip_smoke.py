@@ -39,9 +39,15 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    from zero, `LORE.infer` on B=8 f32 pages of 768² as `bench.py`'s
    lore_tsr stage; head maps of one 256² page are checked against a float32
    run of the same weights on the CPU, with stage times and a profile;
+   then the f32 models: MGP-STR-base, `MGPSTRInference` and LORE's
+   `DLASeg` under FP32_POLICY on the card, which no kernel takes, must
+   launch nothing and agree with the same weights in f32 on the CPU;
 8. fused-qkv attention backward kernel (K4) against its plain version at
-   odd shapes (S = 17, 100, 700, 768) and at the train step's shape
-   (B=128, S=257, H=12), timed beside the backward of
+   S = 1, 8, 16, 17, 63, 64, 65, 257, 272, 273, 320, 321, 700, 768 (both
+   sides of its 64-row tiles and of its 16-row short last chunk) with
+   H = 1, 3, 12, and at a scale that is no power of two; two calls on the
+   same input must give the same bits; timed at the train step's shape
+   (B=128, S=257, H=12) and at B=16, S=768, beside the backward of
    `scaled_dot_product_attention`;
 9. short-sequence MHA kernel (K5) on strided q/k/v views against its plain
    version at S = 17, 300, 1000, 257 (B=128) and 1024, and at S = 1, 64,
@@ -67,7 +73,8 @@ Launch counts are zeroed just before each main path and read just after:
 every recognizer forward must launch the attention kernel 12 times and the
 vocab kernel twice, every LORE forward the deformable conv kernel 16
 times and nothing else, every train step the attention kernel and its
-backward kernel 12 times each and nothing else. Every time printed is this card's own, taken
+backward kernel 12 times each and nothing else, and the f32 models
+nothing at all. Every time printed is this card's own, taken
 with CUDA events or, end to end, with the host clock after a synchronize.
 The second-to-last line is one JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.
@@ -96,6 +103,7 @@ from advancedliteratemachinery_tpu_torch.engine.train import (
     TrainState, make_mgp_str_train_step, make_optimizer, mgp_str_loss)
 from advancedliteratemachinery_tpu_torch.models import layers
 from advancedliteratemachinery_tpu_torch.models.db import DBConfig, DBDetector
+from advancedliteratemachinery_tpu_torch.models.dla import DLASeg
 from advancedliteratemachinery_tpu_torch.models.lore import LORE, LoreConfig
 from advancedliteratemachinery_tpu_torch.models.mgp_str import (
     MGPSTR, MGPSTRConfig)
@@ -128,6 +136,12 @@ ENCODER_RTOL = 5e-2    # bf16 through 12 layers vs float32, relative RMS
 K3_RMS_TOL = 5e-3
 K3_MAX_TOL = 4e-2
 LORE_RTOL = 5e-2       # bf16 DLA-34 + DCN neck vs float32, relative RMS
+# the f32 models on the card (TF32 off for matmuls and cuDNN convs) against
+# f32 on the CPU, relative RMS: the same arithmetic summed in other
+# orders, through 12 layers (MGP-STR) or 34 layers and a neck (DLA); cuDNN
+# may pick Winograd or FFT convs, whose f32 error is larger than a direct
+# sum's
+F32_RTOL = 1e-3
 # K4 against its plain version on the same bf16 inputs, per output (dq, dk,
 # dv), relative to the output's RMS. The plain version rounds where the
 # kernel does (qs, p, dS, the output: bf16), in f32 summed in another order,
@@ -138,6 +152,9 @@ LORE_RTOL = 5e-2       # bf16 DLA-34 + DCN neck vs float32, relative RMS
 # rounding of dS stands out against a small result.
 K4_RMS_TOL = 1e-2
 K4_MAX_TOL = 5e-2
+# K4's sequence lengths: on both sides of its 64-row tiles and of a last
+# chunk of at most 16 rows, up to its longest
+K4_SEQS = (1, 8, 16, 17, 63, 64, 65, 257, 272, 273, 320, 321, 700, 768)
 # one train step's gradients through K1/K4 against the same step with the
 # attention swapped for the plain versions in f32, per parameter group,
 # relative RMS: K1/K4 round p and dS to bf16 where the f32 plain versions
@@ -238,37 +255,45 @@ def short_tail_probe(gen):
 
 
 def rel_errors(got, want):
-    """(RMS error, largest error), each over the RMS of `want`."""
+    """(RMS error, largest error), each over the RMS of `want`; both 0 when
+    `got` equals an all-zero `want` (dq and dk at S=1, where dS is 0)."""
     err = (got.float() - want).abs()
     rms = want.pow(2).mean().sqrt().item()
+    if rms == 0.0:
+        return (0.0, 0.0) if err.max().item() == 0.0 else (np.inf, np.inf)
     return err.pow(2).mean().sqrt().item() / rms, err.max().item() / rms
 
 
-def check_attention_bwd(B, S, H, gen, time_it=False):
-    """K4 against its plain version in f32 on the same bf16 inputs."""
+def check_attention_bwd(B, S, H, gen, time_it=False, scale=None):
+    """K4 against its plain version in f32 on the same bf16 inputs; two
+    calls on the same input must give the same bits."""
     D = H * 64
     qkv = torch.randn(B, S, 3 * D, generator=gen, device="cuda").bfloat16()
     dout = torch.randn(B, S, D, generator=gen, device="cuda").bfloat16()
-    got = fused_qkv_attention_bwd(qkv, dout, H)
-    want = fused_qkv_attention_bwd_plain(qkv, dout, H).float()
-    want32 = fused_qkv_attention_bwd_plain(qkv.float(), dout.float(), H)
+    got = fused_qkv_attention_bwd(qkv, dout, H, scale)
+    again = fused_qkv_attention_bwd(qkv, dout, H, scale)
+    want = fused_qkv_attention_bwd_plain(qkv, dout, H, scale).float()
+    want32 = fused_qkv_attention_bwd_plain(qkv.float(), dout.float(), H,
+                                           scale)
     torch.cuda.synchronize()
-    rec = {"phase": "attention_bwd", "B": B, "S": S, "H": H,
+    rec = {"phase": "attention_bwd", "B": B, "S": S, "H": H, "scale": scale,
            "max_abs_err": (got.float() - want).abs().max().item(),
-           "tol": [K4_RMS_TOL, K4_MAX_TOL]}
+           "tol": [K4_RMS_TOL, K4_MAX_TOL],
+           "repeat_equal": torch.equal(got, again)}
     for i, name in enumerate(("dq", "dk", "dv")):
         sl = slice(i * D, (i + 1) * D)
         rec[f"{name}_rel_rms_err"], rec[f"{name}_max_err_over_rms"] = (
             rel_errors(got[..., sl], want[..., sl]))
         rec[f"{name}_vs_f32"] = rel_errors(got[..., sl], want32[..., sl])
-    require(got.shape == qkv.shape and all(
+    require(got.shape == qkv.shape and rec["repeat_equal"] and all(
         rec[f"{n}_rel_rms_err"] <= K4_RMS_TOL
         and rec[f"{n}_max_err_over_rms"] <= K4_MAX_TOL
         and rec[f"{n}_vs_f32"][0] <= K4_RMS_TOL
         for n in ("dq", "dk", "dv")),
         f"fused_qkv_attention_bwd disagrees with its plain version: {rec}")
     if time_it:
-        rec["ms"] = cuda_ms(lambda: fused_qkv_attention_bwd(qkv, dout, H))
+        rec["ms"] = cuda_ms(lambda: fused_qkv_attention_bwd(qkv, dout, H),
+                            iters=20)
         rec["plain_ms"] = cuda_ms(
             lambda: fused_qkv_attention_bwd_plain(qkv, dout, H), iters=3)
         # yardstick: SDPA's backward on strided views of the same q/k/v
@@ -738,6 +763,71 @@ def lore_tsr(model):
     return rec, counts
 
 
+def f32_models_phase():
+    """MGP-STR-base (its encoder, heads and `MGPSTRInference`) and LORE's
+    DLA-34 + DCN neck (`DLASeg`, offsets re-seeded) under FP32_POLICY on
+    the card: no kernel takes f32, so every module must take its plain path
+    (no launch at all) and agree with the same weights in f32 on the CPU."""
+    cfg = MGPSTRConfig(variant="base")
+    gpu = MGPSTR(cfg, policy=FP32_POLICY, seed=0)
+    cpu = MGPSTR(cfg, policy=FP32_POLICY, device="cpu", seed=0)
+    images = np.random.default_rng(4).integers(0, 256, (4, 32, 128, 3),
+                                               dtype=np.uint8)
+    x = normalize_crops(torch.from_numpy(images), torch.float32)
+
+    @torch.inference_mode()
+    def on_card(model, inp):
+        return {k: v.float().cpu() for k, v in model(inp.cuda()).items()}
+
+    got, counts = counted(lambda: on_card(gpu, x))
+    with torch.inference_mode():
+        want = cpu(x)
+    errs = {f"mgp_str_{k}": rel_errors(got[k], want[k])[0] for k in want}
+
+    gpu_engine = MGPSTRInference(gpu, CharCodec(), input_dtype=torch.float32)
+    cpu_engine = MGPSTRInference(cpu, CharCodec(), input_dtype=torch.float32,
+                                 device="cpu")
+    u8 = torch.from_numpy(images)
+    out, engine_counts = counted(lambda: {
+        k: v.cpu() for k, v in gpu_engine.run(u8.cuda()).items()})
+    ref = cpu_engine.run(u8)
+    id_mismatches, conf_err = 0, 0.0
+    for head in cfg.heads:
+        # greedy ids may differ only where the CPU's top two logits nearly
+        # tie (the two sum in other orders)
+        logits = want[head][:, 1:, :cpu_engine.true_vocab[head]]
+        top2 = logits.topk(2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) < K2_TIE_GAP
+        differ = out[f"{head}_ids"] != ref[f"{head}_ids"]
+        id_mismatches += int((differ & ~near).sum())
+        conf_err = max(conf_err, (out[f"{head}_conf"]
+                                  - ref[f"{head}_conf"]).abs().max().item())
+    del gpu, cpu, gpu_engine, cpu_engine
+
+    dla = DLASeg(LoreConfig().backbone, policy=FP32_POLICY, seed=0)
+    reseed_offsets(dla, seed=8)
+    dla_cpu = DLASeg(LoreConfig().backbone, policy=FP32_POLICY, device="cpu")
+    dla_cpu.load_state_dict(dla.state_dict())
+    page = torch.randn(1, 256, 256, 3,
+                       generator=torch.Generator().manual_seed(6))
+    got, dla_counts = counted(lambda: on_card(dla, page))
+    with torch.inference_mode():
+        want = dla_cpu(page)
+    errs.update({f"dla_{k}": rel_errors(got[k], want[k])[0] for k in want})
+    rec = {"phase": "f32_models", "rel_rms_err": errs, "tol": F32_RTOL,
+           "engine_id_mismatches_off_ties": id_mismatches,
+           "engine_conf_max_abs_err": conf_err,
+           "launches": [counts, engine_counts, dla_counts]}
+    emit(rec)
+    require(counts == engine_counts == dla_counts == {},
+            f"f32 models launched a kernel: {rec}")
+    require(max(errs.values()) <= F32_RTOL and id_mismatches == 0
+            and conf_err <= F32_RTOL,
+            f"f32 models on the card disagree with the CPU: {rec}")
+    del dla, dla_cpu
+    torch.cuda.empty_cache()
+
+
 class PlainAttention(torch.autograd.Function):
     """The plain versions of K1 and K4 in f32 on the card, as one autograd
     Function: the reference step of the train phase."""
@@ -1058,13 +1148,22 @@ def main() -> int:
     _, lore_counts = lore_tsr(lore)
     del lore
     torch.cuda.empty_cache()
+    f32_models_phase()
 
     bwd_err = 0.0
-    for B, S, H in ((3, 17, 2), (2, 100, 3), (1, 700, 2), (1, 768, 1)):
-        bwd_err = max(bwd_err,
-                      check_attention_bwd(B, S, H, gen)["max_abs_err"])
+    # both sides of the 64-row tiles and of a 16-row short last chunk, one
+    # and two heads a block (an odd number of heads: B=3, H=1), and a scale
+    # that is no power of two
+    for S in K4_SEQS:
+        for B, H in ((3, 1), (2, 3), (1, 12)):
+            bwd_err = max(bwd_err,
+                          check_attention_bwd(B, S, H, gen)["max_abs_err"])
+    for B, S, H, scale in ((2, 257, 3, 0.1), (1, 768, 2, 0.3)):
+        bwd_err = max(bwd_err, check_attention_bwd(
+            B, S, H, gen, scale=scale)["max_abs_err"])
     k4 = check_attention_bwd(128, 257, 12, gen, time_it=True)
-    bwd_err = max(bwd_err, k4["max_abs_err"])
+    k4_long = check_attention_bwd(16, 768, 12, gen, time_it=True)
+    bwd_err = max(bwd_err, k4["max_abs_err"], k4_long["max_abs_err"])
     mha_err = 0.0
     for B, S, H in ((3, 17, 2), (2, 300, 3), (1, 1000, 2)):
         mha_err = max(mha_err, check_mha(B, S, H, gen)["max_abs_err"])
@@ -1119,7 +1218,9 @@ def main() -> int:
          "library_ms": k4["library_ms"],
          "library": "backward of scaled_dot_product_attention on strided "
                     "views of the same q/k/v",
-         "shape": "B=128 S=257 D=768 H=12"},
+         "shape": "B=128 S=257 D=768 H=12",
+         "s768": {key: k4_long[key] for key in (
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
         {"name": "mha_short_seq", "route": "cuda", "source": MHA_SRC,
          "replaces": "advancedliteratemachinery_tpu/ops/attention.py:276",
          "launches": train_counts.get("mha_short_seq", 0),

@@ -26,6 +26,7 @@ def csrc_copy(tmp_path, monkeypatch):
     ("vocab_greedy_decode", ["sm90_common.cuh"]),
     ("deform_conv", ["sm90_common.cuh"]),
     ("fused_qkv_attention", ["sm90_attention.cuh", "sm90_common.cuh"]),
+    ("fused_qkv_attention_bwd", ["sm90_attention.cuh", "sm90_common.cuh"]),
     ("mha_short_seq", ["sm90_attention.cuh", "sm90_common.cuh"])])
 def test_lib_path_follows_included_header(csrc_copy, name, headers):
     sources = [p.name for p in _kernels._sources(csrc_copy
@@ -39,20 +40,24 @@ def test_lib_path_follows_included_header(csrc_copy, name, headers):
 
 
 def test_lib_path_ignores_headers_a_source_does_not_include(csrc_copy):
-    before = _kernels._lib_path("fused_qkv_attention_bwd")
-    for name in ("sm90_common.cuh", "sm90_attention.cuh"):
-        header = csrc_copy / name
-        header.write_text(header.read_text() + "\n// edited\n")
-    assert _kernels._lib_path("fused_qkv_attention_bwd") == before
+    """K2 and K3 include the common header but not the attention core."""
+    names = ("vocab_greedy_decode", "deform_conv")
+    before = {n: _kernels._lib_path(n) for n in names}
+    header = csrc_copy / "sm90_attention.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert {n: _kernels._lib_path(n) for n in names} == before
 
 
 def test_attention_core_edit_rebuilds_k1_and_k5_only(csrc_copy):
+    """An edit of the attention core rebuilds the kernels on it and no
+    other: K1, K5 and, since it moved onto the core, K4."""
     names = list(_kernels.SOURCES)
     before = {n: _kernels._lib_path(n) for n in names}
     header = csrc_copy / "sm90_attention.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     changed = {n for n in names if _kernels._lib_path(n) != before[n]}
-    assert changed == {"fused_qkv_attention", "mha_short_seq"}
+    assert changed == {"fused_qkv_attention", "fused_qkv_attention_bwd",
+                       "mha_short_seq"}
 
 
 @pytest.mark.parametrize("cin,cout", [(5, 7), (8, 3), (13, 16)])

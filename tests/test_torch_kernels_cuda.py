@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on a CUDA card.
+"""The port's CUDA kernels against their plain versions, on a CUDA card,
+and the modules' choice between a kernel and its plain path there.
 
 These tests need a card and skip without one. On a machine with a card and
 no JAX run them without the suite's conftest (which imports JAX):
@@ -6,9 +7,20 @@ no JAX run them without the suite's conftest (which imports JAX):
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
 
+import numpy as np
 import pytest
 import torch
 
+from advancedliteratemachinery_tpu_torch.codecs.char_codec import CharCodec
+from advancedliteratemachinery_tpu_torch.core.precision import (
+    DEFAULT_POLICY, FP32_POLICY)
+from advancedliteratemachinery_tpu_torch.engine.infer import MGPSTRInference
+from advancedliteratemachinery_tpu_torch.models import layers
+from advancedliteratemachinery_tpu_torch.models.dla import (
+    DLAConfig, DLASeg, DLASegConfig)
+from advancedliteratemachinery_tpu_torch.models.mgp_str import (
+    MGPSTR, MGPSTRConfig)
+from advancedliteratemachinery_tpu_torch.models.vit import ViTConfig
 from advancedliteratemachinery_tpu_torch.ops import _kernels
 from advancedliteratemachinery_tpu_torch.ops.attention import (
     fused_qkv_attention, fused_qkv_attention_bwd,
@@ -167,23 +179,46 @@ def test_kernels_reject_unsupported_inputs(gen):
                       padding=0)
 
 
-@pytest.mark.parametrize("B,S,H", [(3, 17, 2), (2, 100, 3)])
-def test_attention_bwd_kernel_matches_plain(gen, B, S, H):
+def _check_bwd(gen, B, S, H, scale=None):
     D = H * 64
     qkv = torch.randn(B, S, 3 * D, generator=gen, device="cuda").bfloat16()
     dout = torch.randn(B, S, D, generator=gen, device="cuda").bfloat16()
     before = _kernels.LAUNCHES["fused_qkv_attention_bwd"]
-    got = fused_qkv_attention_bwd(qkv, dout, H).float()
+    got = fused_qkv_attention_bwd(qkv, dout, H, scale)
     assert _kernels.LAUNCHES["fused_qkv_attention_bwd"] == before + 1
+    # no atomics: the same input gives the same bits
+    assert torch.equal(got, fused_qkv_attention_bwd(qkv, dout, H, scale))
     # the plain version rounds where the kernel does (qs, p, dS, output);
     # sums in another order may flip a rounding: relative to each output's
-    # RMS
-    want = fused_qkv_attention_bwd_plain(qkv, dout, H).float()
+    # RMS (K4_RMS_TOL, K4_MAX_TOL); at S=1 dS is 0 and so are dq and dk
+    want = fused_qkv_attention_bwd_plain(qkv, dout, H, scale).float()
+    got = got.float()
     for i in range(3):
         w, g = want[..., i * D:(i + 1) * D], got[..., i * D:(i + 1) * D]
         rms = w.pow(2).mean().sqrt()
+        if rms.item() == 0:
+            assert not g.any()
+            continue
         assert ((g - w).pow(2).mean().sqrt() / rms).item() <= 1e-2
         assert ((g - w).abs().max() / rms).item() <= 5e-2
+
+
+# K4's 64-row tiles and chunks on and off them, its 16-row short last
+# chunk (S = 16, 17, 272, 273), its longest sequence, and 1, 3 and 12 heads
+@pytest.mark.parametrize("B,S,H", [(3, 17, 2), (2, 100, 3)] + [
+    (B, S, H)
+    for S in (1, 8, 16, 17, 63, 64, 65, 257, 272, 273, 320, 321, 700, 768)
+    for B, H in ((3, 1), (2, 3), (1, 12))])
+def test_attention_bwd_kernel_matches_plain(gen, B, S, H):
+    _check_bwd(gen, B, S, H)
+
+
+@pytest.mark.parametrize("B,S,H,scale", [
+    (3, 17, 1, 0.2), (2, 257, 3, 0.1), (1, 768, 2, 0.3)])
+def test_attention_bwd_kernel_other_scale(gen, B, S, H, scale):
+    """A scale that is no power of two: q is scaled and rounded to bf16
+    before the kernel reads it, as the plain version rounds it."""
+    _check_bwd(gen, B, S, H, scale)
 
 
 def test_attention_autograd_launches_k1_and_k4(gen):
@@ -272,3 +307,117 @@ def test_kernels_without_backward_refuse_grad(gen):
         deform_conv2d(x, off, mask, wt.requires_grad_(), b)
     with torch.no_grad():
         deform_conv2d(x, off, mask, wt, b)
+
+
+class _PlainAttention(torch.autograd.Function):
+    """K1 and K4's plain versions in f32 as one autograd Function."""
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, scale=None, safe=True):
+        ctx.save_for_backward(qkv)
+        ctx.num_heads = num_heads
+        return fused_qkv_attention_plain(qkv.float(), num_heads, scale,
+                                         safe).to(qkv.dtype)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (qkv,) = ctx.saved_tensors
+        return (fused_qkv_attention_bwd_plain(
+            qkv.float(), dout.float(), ctx.num_heads).to(qkv.dtype),
+            None, None, None)
+
+
+def test_attention_module_gradients_through_k1_and_k4(gen, monkeypatch):
+    """`MultiHeadSelfAttention` in bf16 on the card takes K1 forward and K4
+    backward (one launch each); its gradients agree with the same module
+    with the attention swapped for the plain versions in f32, relative to
+    each gradient's RMS (bf16 p and dS in the kernels)."""
+    torch.manual_seed(0)
+    mod = layers.MultiHeadSelfAttention(768, 12).cuda()
+    x = torch.randn(4, 257, 768, generator=gen, device="cuda")
+    g = torch.randn(4, 257, 768, generator=gen, device="cuda")
+
+    def grads():
+        mod.zero_grad(set_to_none=True)
+        xi = x.clone().requires_grad_()
+        mod(xi).float().backward(g)
+        return [xi.grad] + [p.grad for p in mod.parameters()]
+
+    before = dict(_kernels.LAUNCHES)
+    got = grads()
+    for name in ("fused_qkv_attention", "fused_qkv_attention_bwd"):
+        assert _kernels.LAUNCHES[name] == before.get(name, 0) + 1
+    monkeypatch.setattr(
+        layers, "fused_qkv_attention",
+        lambda qkv, num_heads, scale=None, safe=True:
+        _PlainAttention.apply(qkv, num_heads, scale, safe))
+    want = grads()
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).pow(2).mean().sqrt()
+        assert (err / b.float().pow(2).mean().sqrt()).item() <= 2e-2
+
+
+def _rel(a, b):
+    return ((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+
+
+def test_f32_models_take_the_plain_paths(gen, monkeypatch):
+    """MGP-STR and DLASeg under FP32_POLICY run on the card without a kernel
+    launch and agree with the same weights on the CPU. TF32 is off for
+    matmuls and for cuDNN's convs (on by default there), so both sides
+    compute in f32 and differ only in summation order."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    cfg = MGPSTRConfig(vit=ViTConfig(embed_dim=192, depth=2, num_heads=3),
+                       bpe_vocab_size=1000, wp_vocab_size=1100)
+    gpu = MGPSTR(cfg, policy=FP32_POLICY, seed=1)
+    cpu = MGPSTR(cfg, policy=FP32_POLICY, device="cpu", seed=1)
+    x = torch.rand(3, 32, 128, 3, generator=torch.Generator().manual_seed(2))
+    dla_cfg = DLASegConfig(dla=DLAConfig(), head_conv=32)
+    dla = DLASeg(dla_cfg, policy=FP32_POLICY, seed=3)
+    with torch.no_grad():        # offsets over several pixels
+        for m in dla.modules():
+            if hasattr(m, "conv_offset_mask"):
+                m.conv_offset_mask.bias.normal_(0, 2, generator=gen)
+    dla_cpu = DLASeg(dla_cfg, policy=FP32_POLICY, device="cpu")
+    dla_cpu.load_state_dict(dla.state_dict())
+    page = torch.randn(1, 96, 96, 3,
+                       generator=torch.Generator().manual_seed(4))
+    before = dict(_kernels.LAUNCHES)
+    with torch.inference_mode():
+        got = {k: v.cpu() for k, v in gpu(x.cuda()).items()}
+        got_dla = {k: v.cpu() for k, v in dla(page.cuda()).items()}
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHES) == before
+    with torch.inference_mode():
+        want, want_dla = cpu(x), dla_cpu(page)
+    for k in want:
+        assert _rel(got[k], want[k]) <= 1e-4, k
+    for k in want_dla:
+        assert _rel(got_dla[k], want_dla[k]) <= 1e-3, k
+
+
+@pytest.mark.parametrize("fused_decode,k2", [("never", 0), ("auto", 2)])
+def test_engine_fused_decode_on_card(gen, fused_decode, k2):
+    """In bf16 on the card "auto" fuses the BPE and WordPiece heads through
+    K2 (two launches a batch), "never" none; the encoder launches K1 in
+    each of its layers either way, and the ids agree."""
+    cfg = MGPSTRConfig(vit=ViTConfig(embed_dim=192, depth=2, num_heads=3),
+                       bpe_vocab_size=1000, wp_vocab_size=1100)
+    model = MGPSTR(cfg, policy=DEFAULT_POLICY, seed=5)
+    images = torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (4, 32, 128, 3), dtype=np.uint8)).cuda()
+    engine = MGPSTRInference(model, CharCodec(), fused_decode=fused_decode)
+    before = dict(_kernels.LAUNCHES)
+    out = engine.run(images)
+    torch.cuda.synchronize()
+    after = dict(_kernels.LAUNCHES)
+    launched = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    assert launched.get("vocab_greedy_decode", 0) == k2
+    assert launched.get("fused_qkv_attention", 0) == 2
+    ref = MGPSTRInference(model, CharCodec(), fused_decode="never").run(
+        images)
+    # near-ties may go either way between the kernel and the bf16 logits
+    for head in ("char", "bpe", "wp"):
+        same = (out[f"{head}_ids"] == ref[f"{head}_ids"]).float().mean()
+        assert same.item() >= 0.95, head

@@ -157,8 +157,10 @@ def test_one_step_loss_and_gradients_fp32(flax_pair):
     assert tx == make_optimizer(lr=1e-4, total_steps=2_000_000,
                                 grad_clip=5.0)     # the JAX recipe's
     loss, _ = loss_fn(tb, None)
-    # every encoder layer's attention went through the autograd Function
-    assert _count_nodes(loss.grad_fn, "FusedQKVAttentionBackward") == 2
+    # on the CPU every encoder layer's attention takes the plain einsum
+    # path, as the JAX module's does (its fused-qkv check fails there), so
+    # the kernels' autograd Function is nowhere in the graph
+    assert _count_nodes(loss.grad_fn, "FusedQKVAttentionBackward") == 0
     loss.backward()
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
     want = flax_state_dict(tm, jax.tree.map(np.asarray, jgrads))
@@ -171,9 +173,8 @@ def test_one_step_loss_and_gradients_fp32(flax_pair):
 
 
 def test_bf16_step_close_to_jax(flax_pair):
-    """bf16 compute on both sides (f32 parameters): the port's attention
-    rounds the unnormalised probabilities, the JAX einsum path the
-    normalised ones, and bf16 sums run in other orders."""
+    """bf16 compute on both sides (f32 parameters): both take the einsum
+    attention on the CPU, and bf16 sums run in other orders."""
     jm32, params = flax_pair
     jm = JMGPSTR(jm32.config, policy=J_DEFAULT)
     batch = _batch(4)
