@@ -13,8 +13,10 @@ carry the flax names, so only the leaves change:
   `running_mean`/`running_var`;
 - Embed `embedding` [N, D] → `Embedding.weight`, as it is.
 
-Other leaves (biases, LORE's std-norm `*_alpha`/`*_bias`) carry over as
-they are.
+Other leaves (biases, LORE's std-norm `*_alpha`/`*_bias`, the FocalNet
+and LISTER layerscale gammas, LISTER's `eos_emb`, `kv_pos_bias` and its
+navigator's [C, C] `weight` and 0-d `bias`) carry over as they are.
+Reference torch checkpoints take `engine/checkpoint.py` instead.
 
 A missing key, an unused key or a shape mismatch raises.
 """

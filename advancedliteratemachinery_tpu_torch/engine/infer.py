@@ -1,5 +1,6 @@
-"""Batched MGP-STR inference (port of
-`advancedliteratemachinery_tpu/engine/infer.py` `MGPSTRInference`).
+"""Batched MGP-STR and LISTER inference (port of
+`advancedliteratemachinery_tpu/engine/infer.py` `MGPSTRInference` and
+`LISTERInference`).
 
 On the device: normalize → forward → greedy ids and cumulative confidence
 per head. With `fused_decode="auto"` a head goes through the fused vocab
@@ -9,6 +10,10 @@ BPE and WordPiece heads. Every other head, and every head under
 `fused_decode="never"`, is decoded in plain tensor code from its logits.
 On the host: id → string decode and the fusion that picks the most
 confident head.
+
+LISTER: on the device, normalize → an all-ones mask → the forward → greedy
+ids (first on ties), max-prob and the cumulative confidence of the last
+decode; on the host, `EosSeqCodec.decode`.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import numpy as np
 import torch
 
 from advancedliteratemachinery_tpu_torch.codecs.char_codec import CharCodec
+from advancedliteratemachinery_tpu_torch.codecs.seq_codec import EosSeqCodec
 from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.models.layers import linear
 from advancedliteratemachinery_tpu_torch.ops.image import normalize_crops
@@ -30,6 +36,19 @@ from advancedliteratemachinery_tpu_torch.ops.vocab_decode import (
 # per-head EOS ids (char [s]=1, GPT-2 BPE eos=2 in the MGP-STR layout,
 # BERT [SEP]=102)
 EOS_IDS = {"char": 1, "bpe": 2, "wp": 102}
+
+
+def conf_from_pmax(pred: torch.Tensor, pmax: torch.Tensor, eos_id: int
+                   ) -> torch.Tensor:
+    """Cumulative max-prob confidence up to the first EOS; 0 when the
+    sequence never emits EOS."""
+    is_eos = pred == eos_id
+    any_eos = is_eos.any(dim=1)
+    eos_pos = is_eos.to(torch.int32).argmax(dim=1)       # first True
+    pos = torch.arange(pred.shape[1], device=pred.device)[None, :]
+    conf = torch.where(pos <= eos_pos[:, None], pmax,
+                       torch.ones_like(pmax)).prod(dim=1)
+    return torch.where(any_eos, conf, torch.zeros_like(conf))
 
 
 class MGPSTRInference:
@@ -90,7 +109,7 @@ class MGPSTRInference:
                     tok.reshape(B * T, D).contiguous(), hp.weight, hp.bias,
                     self.true_vocab[head])
                 ids, pmax = ids.reshape(B, T), pmax.reshape(B, T)
-                conf = self._conf_from_pmax(ids, pmax, EOS_IDS[head])
+                conf = conf_from_pmax(ids, pmax, EOS_IDS[head])
             else:
                 logits = out[head]
                 if self.fused_heads:     # model returned tokens
@@ -114,21 +133,7 @@ class MGPSTRInference:
         pred = torch.argmax(logits, dim=-1).to(torch.int32)   # first max
         lf = logits.float()
         pmax = torch.exp(lf.amax(-1) - torch.logsumexp(lf, -1))
-        return pred, MGPSTRInference._conf_from_pmax(pred, pmax,
-                                                     EOS_IDS[head])
-
-    @staticmethod
-    def _conf_from_pmax(pred: torch.Tensor, pmax: torch.Tensor, eos_id: int
-                        ) -> torch.Tensor:
-        """Cumulative max-prob confidence up to the first EOS; 0 when the
-        sequence never emits EOS."""
-        is_eos = pred == eos_id
-        any_eos = is_eos.any(dim=1)
-        eos_pos = is_eos.to(torch.int32).argmax(dim=1)       # first True
-        pos = torch.arange(pred.shape[1], device=pred.device)[None, :]
-        conf = torch.where(pos <= eos_pos[:, None], pmax,
-                           torch.ones_like(pmax)).prod(dim=1)
-        return torch.where(any_eos, conf, torch.zeros_like(conf))
+        return pred, conf_from_pmax(pred, pmax, EOS_IDS[head])
 
     def run(self, images_u8: torch.Tensor) -> Dict[str, torch.Tensor]:
         """uint8 [B, 32, 128, 3] tensor on the device → device tensors."""
@@ -161,3 +166,40 @@ class MGPSTRInference:
                 cands.append((wp_strs[i], float(out["wp_conf"][i]), "wp"))
             results.append(max(cands, key=lambda c: c[1]))
         return results
+
+
+class LISTERInference:
+    """Batched LISTER recognition (the JAX `LISTERInference`; reference
+    test.py:23). The engine keeps its own copy of `model` on `device` (the
+    GPU unless `device="cpu"`) with every weight cast to the compute dtype
+    once; it reads the last decode, the refined one when `iters > 0`."""
+
+    def __init__(self, model, codec: EosSeqCodec = None,
+                 input_dtype: torch.dtype = torch.bfloat16,
+                 device: Union[str, torch.device, None] = None):
+        self.device = resolve_device(device)
+        model = copy.deepcopy(model)
+        self.model = model.to(self.device, model.policy.compute_dtype).eval()
+        self.model.requires_grad_(False)
+        self.codec = codec or EosSeqCodec()
+        self.input_dtype = input_dtype
+
+    @torch.inference_mode()
+    def run(self, images_u8: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """uint8 [B, 32, W, 3] tensor on the device → (ids [B, L] int32,
+        conf [B]) on the device."""
+        x = normalize_crops(images_u8, self.input_dtype)
+        mask = torch.ones(x.shape[:3], dtype=x.dtype, device=x.device)
+        logits = self.model(x, mask)[-1]["logits"].float()
+        ids = torch.argmax(logits, dim=-1).to(torch.int32)
+        pmax = torch.softmax(logits, dim=-1).amax(dim=-1)
+        return ids, conf_from_pmax(ids, pmax, EosSeqCodec.EOS_ID)
+
+    def recognize(self, images_u8):
+        """uint8 crops (numpy or tensor) → list of (text, confidence,
+        "lister")."""
+        x = torch.as_tensor(np.asarray(images_u8)).to(self.device)
+        ids, conf = self.run(x)
+        texts = self.codec.decode(ids.cpu().numpy())
+        return [(t, float(c), "lister") for t, c in zip(texts, conf.cpu())]

@@ -65,7 +65,7 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype
     """flax Conv(dtype=...): input, kernel and bias in `dtype` (NCHW)."""
     b = conv.bias.to(dtype) if conv.bias is not None else None
     return F.conv2d(x.to(dtype), conv.weight.to(dtype), b, conv.stride,
-                    conv.padding)
+                    conv.padding, conv.dilation, conv.groups)
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:

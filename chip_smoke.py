@@ -67,46 +67,84 @@ Phases, each of which fails the run (non-zero exit) if it fails:
 11. `fit()` with `mgp_str_recipe_u8` on MGP-STR-base in a temporary
     directory: 4 steps saving every 2 and keeping 1; a restore of the last
     checkpoint equals the live state; a resume to step 6 against an
-    uninterrupted 6-step run.
+    uninterrupted 6-step run;
+12. (right after the build) the golden replay: tests/golden/{mgp_str,
+    lore,lister}.pth through the port's loader and importers into the
+    port's models in f32 on the card, against the committed outputs at
+    the golden tolerances, with no launch;
+13. (after the f32 models) reference checkpoints at full width: a
+    reference-layout MGP-STR-base state dict (timm keys, `module.`, heads
+    of 38, 50257 and 30522) and a LORE pair (DLASeg at the full
+    `LoreConfig()` and the Processor) written to a temporary directory,
+    dropped from the page cache, loaded and imported, each timed (a
+    user's cold start where the filesystem lets the cache go, with the
+    share still cached beside it; the load is timed from the cache too);
+    the imported LORE must equal the weights it was written from, the
+    importers must leave no tensor unused, `MGPSTRInference` with the
+    mini BPE and WordPiece codecs runs `recognize()` on 256 crops (12 K1
+    + 2 K2 a forward, no padded id), and the imported LORE runs `infer`
+    at B=8 x 768² (16 K3) and is checked against the CPU;
+14. LISTER, the fourth path: `LISTERConfig()` (FocalNet-B) in bf16 with
+    seeded weights, `LISTERInference` crops/s at B=256 and B=1 latency,
+    logits against f32 on the CPU with iters 0 and 2, a profile; LISTER
+    has no Pallas kernel, so it must launch none.
 
 Launch counts are zeroed just before each main path and read just after:
 every recognizer forward must launch the attention kernel 12 times and the
 vocab kernel twice, every LORE forward the deformable conv kernel 16
 times and nothing else, every train step the attention kernel and its
-backward kernel 12 times each and nothing else, and the f32 models
-nothing at all. Every time printed is this card's own, taken
-with CUDA events or, end to end, with the host clock after a synchronize.
+backward kernel 12 times each and nothing else, and the f32 models, the
+golden replay and LISTER nothing at all. Every time printed is this card's
+own, taken with CUDA events or, end to end, with the host clock after a
+synchronize.
 The second-to-last line is one JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 import json
+import mmap
 import os
+import re
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from advancedliteratemachinery_tpu_torch.codecs.char_codec import CharCodec
+from advancedliteratemachinery_tpu_torch.codecs.subword import (
+    BpeCodec, WordpieceCodec)
 from advancedliteratemachinery_tpu_torch.core.precision import FP32_POLICY
 from advancedliteratemachinery_tpu_torch.engine.batches import (
     mgp_str_recipe_u8)
 from advancedliteratemachinery_tpu_torch.engine.fit import (
     FitConfig, fit, restore_train_state)
-from advancedliteratemachinery_tpu_torch.engine.infer import MGPSTRInference
+from advancedliteratemachinery_tpu_torch.engine.checkpoint import (
+    dcn_offset_perm, import_dla, import_lister, import_lore_processor,
+    import_mgp_str, load_torch_state_dict)
+from advancedliteratemachinery_tpu_torch.engine.infer import (
+    LISTERInference, MGPSTRInference)
 from advancedliteratemachinery_tpu_torch.engine.train import (
     TrainState, make_mgp_str_train_step, make_optimizer, mgp_str_loss)
 from advancedliteratemachinery_tpu_torch.models import layers
 from advancedliteratemachinery_tpu_torch.models.db import DBConfig, DBDetector
-from advancedliteratemachinery_tpu_torch.models.dla import DLASeg
+from advancedliteratemachinery_tpu_torch.models.dla import (
+    DLAConfig, DLASeg, DLASegConfig)
+from advancedliteratemachinery_tpu_torch.models.focalnet import (
+    FocalNetConfig)
+from advancedliteratemachinery_tpu_torch.models.lister import (
+    LISTER, LISTERConfig)
 from advancedliteratemachinery_tpu_torch.models.lore import LORE, LoreConfig
 from advancedliteratemachinery_tpu_torch.models.mgp_str import (
     MGPSTR, MGPSTRConfig)
+from advancedliteratemachinery_tpu_torch.models.vit import ViTConfig
 from advancedliteratemachinery_tpu_torch.ops import _kernels
 from advancedliteratemachinery_tpu_torch.ops.attention import (
     fused_qkv_attention, fused_qkv_attention_bwd,
@@ -161,6 +199,28 @@ K4_SEQS = (1, 8, 16, 17, 63, 64, 65, 257, 272, 273, 320, 321, 700, 768)
 # do not (~2.4e-3 relative RMS at the attention), and the difference
 # travels back through 12 bf16 layers
 TRAIN_GRAD_RTOL = 2e-2
+# LISTER's logits in bf16 on the card against f32 on the CPU, relative RMS:
+# bf16 through FocalNet-B's 15 blocks and the 36-step walk; the same
+# comparison in bf16 on the CPU gave 6.7e-3 (iters 0) and 9.7e-3 (iters 2)
+LISTER_RTOL = 3e-2
+
+# The golden artifacts' configurations (tests/golden/{mgp_str,lore,lister}
+# .pth), copied from the JAX tests that build them:
+# tests/test_checkpoint_import.py:20 (D, HEADS, DEPTH, T = 32, 2, 2, 9),
+# tests/test_dla_import.py:24-27 and tests/golden_common.py:82-86; and their
+# tolerances, tests/golden_common.py:391
+GOLDEN_MGP_STR = MGPSTRConfig(batch_max_length=7, bpe_vocab_size=64,
+                              wp_vocab_size=64,
+                              vit=ViTConfig(embed_dim=32, depth=2,
+                                            num_heads=2))
+GOLDEN_DLASEG = DLASegConfig(dla=DLAConfig(levels=(1, 1, 1, 2, 2, 1),
+                                           channels=(4, 8, 16, 32, 64, 128)),
+                             head_conv=8, heads=(("hm", 2), ("reg", 2)))
+GOLDEN_LISTER = LISTERConfig(
+    max_ch=6, iters=1, nhead=2, window_size=5,
+    focalnet=FocalNetConfig(embed_dim=8, depths=(1, 1, 1, 1),
+                            layerscale_value=1e-2))
+GOLDEN_TOL = {"mgp_str": 2e-4, "lore": 2e-3, "lister": 1e-5}
 
 ATTN_SRC = "advancedliteratemachinery_tpu_torch/csrc/fused_qkv_attention.cu"
 DECODE_SRC = "advancedliteratemachinery_tpu_torch/csrc/vocab_greedy_decode.cu"
@@ -173,6 +233,12 @@ DCN_PATH_SHAPES = ((8, 24, 512, 256, 1), (8, 48, 256, 256, 1),
                    (8, 48, 256, 128, 2), (8, 48, 256, 64, 1),
                    (8, 96, 128, 128, 2), (8, 96, 128, 64, 4),
                    (8, 192, 64, 64, 5))
+
+
+# the __global__ functions of csrc/, each in an anonymous namespace
+PORT_KERNELS = tuple(f"(anonymous namespace)::{name}" for name in (
+    "attn::attention_kernel", "bwd_kernel", "deform_conv_kernel",
+    "vocab_partial_kernel", "vocab_merge_kernel"))
 
 
 def emit(obj) -> None:
@@ -285,6 +351,15 @@ def check_attention_bwd(B, S, H, gen, time_it=False, scale=None):
         rec[f"{name}_rel_rms_err"], rec[f"{name}_max_err_over_rms"] = (
             rel_errors(got[..., sl], want[..., sl]))
         rec[f"{name}_vs_f32"] = rel_errors(got[..., sl], want32[..., sl])
+    if not rec["repeat_equal"]:            # where the two calls differ
+        d = (got.float() - again.float()).abs().view(B, S, 3, H, 64)
+        nz = d.nonzero()
+        rec["repeat_diff"] = {
+            "n": len(nz), "max": d.max().item(),
+            "parts": sorted(set(nz[:, 2].tolist())),    # 0 dq, 1 dk, 2 dv
+            "batches": sorted(set(nz[:, 0].tolist()))[:8],
+            "rows": sorted(set(nz[:, 1].tolist()))[:32],
+            "heads": sorted(set(nz[:, 3].tolist()))[:12]}
     require(got.shape == qkv.shape and rec["repeat_equal"] and all(
         rec[f"{n}_rel_rms_err"] <= K4_RMS_TOL
         and rec[f"{n}_max_err_over_rms"] <= K4_MAX_TOL
@@ -632,11 +707,12 @@ def profile_steps(phase, steps, step_ms=None):
            "top_device_ms_per_step": [
                [e.key[:90], e.self_device_time_total / 1e3 / len(steps)]
                for e in top],
-           # the port's own kernels (declared in anonymous namespaces)
+           # the port's own kernels, by name (PyTorch declares kernels in
+           # anonymous namespaces too)
            "port_kernels_ms_per_step": [
                [e.key[:90], e.self_device_time_total / 1e3 / len(steps)]
                for e in device
-               if e.key.removeprefix("void ").startswith("(anonymous namespace)")]}
+               if e.key.removeprefix("void ").startswith(PORT_KERNELS)]}
     if step_ms is not None:
         rec["unprofiled_step_ms"] = step_ms
         rec["device_idle_share_unprofiled"] = (
@@ -826,6 +902,420 @@ def f32_models_phase():
             f"f32 models on the card disagree with the CPU: {rec}")
     del dla, dla_cpu
     torch.cuda.empty_cache()
+
+
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "tests", "fixtures")
+
+
+def golden_replay():
+    """tests/golden/{mgp_str,lore,lister}.pth through the port's
+    `load_torch_state_dict` and importers into the port's models in f32 on
+    the card (which no kernel takes), against the committed outputs of the
+    reference's math at the golden tolerances (rtol = atol)."""
+    t0 = time.perf_counter()
+
+    def load(family):
+        return (load_torch_state_dict(os.path.join(GOLDEN_DIR,
+                                                   f"{family}.pth")),
+                np.load(os.path.join(GOLDEN_DIR, f"{family}.npz")))
+
+    @torch.inference_mode()
+    def run():
+        outs = {}
+        sd, data = load("mgp_str")
+        model = MGPSTR(GOLDEN_MGP_STR, policy=FP32_POLICY)
+        import_mgp_str(sd, model)
+        got = model(torch.from_numpy(data["in_image"]).cuda())
+        outs["mgp_str"] = {h: (got[h], data[f"out_{h}"])
+                           for h in ("char", "bpe", "wp")}
+        sd, data = load("lore")
+        model = DLASeg(GOLDEN_DLASEG, policy=FP32_POLICY)
+        import_dla(sd, model)
+        got = model(torch.from_numpy(data["in_image"]).cuda())
+        outs["lore"] = {h: (got[h], data[f"out_{h}"]) for h in ("hm", "reg")}
+        sd, data = load("lister")
+        model = LISTER(GOLDEN_LISTER, policy=FP32_POLICY)
+        import_lister(sd, model)
+        got = model(torch.from_numpy(data["in_image"]).cuda(),
+                    torch.from_numpy(data["in_mask"]).cuda())
+        outs["lister"] = {"logits": (got[-1]["logits"], data["out_logits"])}
+        return outs
+
+    outs, counts = counted(run)
+    rec = {"phase": "golden_replay", "launches": counts, "families": {}}
+    ok = counts == {}
+    for family, pairs in outs.items():
+        tol = GOLDEN_TOL[family]
+        abs_err, over = 0.0, 0.0
+        for got, want in pairs.values():
+            got = got.float().cpu().numpy()[..., :want.shape[-1]]
+            err = np.abs(got - want)
+            abs_err = max(abs_err, float(err.max()))
+            # at most 1 where assert_allclose(rtol=tol, atol=tol) passes
+            over = max(over, float((err / (tol + tol * np.abs(want))).max()))
+        rec["families"][family] = {"max_abs_err": abs_err, "rtol": tol,
+                                   "atol": tol, "err_over_bound": over}
+        ok = ok and over <= 1.0
+    rec["seconds"] = time.perf_counter() - t0
+    emit(rec)
+    require(ok, f"golden replay on the card failed: {rec}")
+
+
+def reference_mgp_str_state(cfg, gen):
+    """A reference-layout MGP-STR state dict for `cfg`: timm ViT keys, the
+    TokenLearners' grouped 1x1 convs (groups 8) and unpadded heads, values
+    drawn from `gen`."""
+    vit = cfg.vit_config()
+    D, P, T = vit.embed_dim, vit.patch_size, cfg.max_tokens
+    Dg = D // 8
+    hidden = int(D * vit.mlp_ratio)
+    sd = {}
+
+    def rnd(*shape, std=0.02):
+        return torch.randn(*shape, generator=gen) * std
+
+    def lin(name, o, i):
+        sd[f"{name}.weight"] = rnd(o, i, std=i ** -0.5)
+        sd[f"{name}.bias"] = rnd(o)
+
+    def norm(name):
+        sd[f"{name}.weight"] = 1.0 + rnd(D, std=0.1)
+        sd[f"{name}.bias"] = rnd(D)
+
+    sd["patch_embed.proj.weight"] = rnd(D, vit.in_chans, P, P, std=0.1)
+    sd["patch_embed.proj.bias"] = rnd(D)
+    sd["cls_token"] = rnd(1, 1, D)
+    sd["pos_embed"] = rnd(1, vit.seq_len, D)
+    for i in range(vit.depth):
+        pre = f"blocks.{i}."
+        norm(pre + "norm1")
+        lin(pre + "attn.qkv", 3 * D, D)
+        lin(pre + "attn.proj", D, D)
+        norm(pre + "norm2")
+        lin(pre + "mlp.fc1", hidden, D)
+        lin(pre + "mlp.fc2", D, hidden)
+    vocab = {"char": cfg.num_char_classes, "bpe": cfg.bpe_vocab_size,
+             "wp": cfg.wp_vocab_size}
+    for head in cfg.heads:
+        pre = f"{head}_tokenLearner."
+        norm(pre + "token_norm")
+        sd[pre + "tokenLearner.0.weight"] = rnd(D, Dg, 1, 1, std=Dg ** -0.5)
+        sd[pre + "tokenLearner.1.weight"] = rnd(T, D, 1, 1, std=D ** -0.5)
+        sd[pre + "feat.weight"] = rnd(D, Dg, 1, 1, std=Dg ** -0.5)
+        norm(pre + "norm")
+        lin(f"{head}_head", vocab[head], D)
+    return sd
+
+
+# the port's LORE keys → the reference's (pose_dla_dcn.py DLASeg;
+# classifier.py Processor with transformer.py), applied in order: the
+# reference layout written out here, independently of the importers
+DLA_TO_REFERENCE = (
+    (r"^(base\.(?:base_layer|level[01]))\.conv\.", r"\1.0."),
+    (r"^(base\.(?:base_layer|level[01]))\.bn\.", r"\1.1."),
+    (r"\.project\.conv\.", ".project.0."),
+    (r"\.project\.bn\.", ".project.1."),
+    (r"\.root\.conv\.conv\.", ".root.conv."),
+    (r"\.root\.conv\.bn\.", ".root.bn."),
+    (r"\.conv([12])\.conv\.", r".conv\1."),
+    (r"\.conv([12])\.bn\.", r".bn\1."),
+    (r"\.dcn\.", ".conv."),
+    (r"\.((?:proj|node)_\d+)\.bn\.", r".\1.actf.0."),
+    (r"\.(up_\d+)\.kernel$", r".\1.weight"),
+    (r"^(\w+)_conv1\.", r"\1.0."),
+    (r"^(\w+)_out\.", r"\1.2."))
+PROCESSOR_TO_REFERENCE = (
+    (r"^x_pe\.", "x_position_embeddings."),
+    (r"^y_pe\.", "y_position_embeddings."),
+    (r"^logi_enc1\.", "stacker.logi_encoder.0."),
+    (r"^logi_enc2\.", "stacker.logi_encoder.2."),
+    (r"^stacker_tsfm\.", "stacker.tsfm."),
+    (r"\.in_proj\.", ".linear."),
+    (r"\.layer_(\d+)\.norm([12])_", r".encoder.layers.\1.norm_\2."),
+    (r"\.layer_(\d+)\.([qkv])\.", r".encoder.layers.\1.attn.\2_linear."),
+    (r"\.layer_(\d+)\.out\.", r".encoder.layers.\1.attn.out."),
+    (r"\.layer_(\d+)\.ff([12])\.", r".encoder.layers.\1.ff.linear_\2."),
+    (r"\.dec1\.", ".decoder.linear.0."),
+    (r"\.dec2\.", ".decoder.linear.2."))
+
+
+def reference_lore_pair(model):
+    """The weights of a port LORE in the reference's two files: the DCN
+    offset rows interleaved (y_k, x_k), the up kernels [C, 1, 2f, 2f], and
+    the Processor's never-applied Encoder members that real checkpoints
+    carry."""
+    def rename(sd, rules):
+        out = {}
+        for k, v in sd.items():
+            for pattern, repl in rules:
+                k = re.sub(pattern, repl, k)
+            out[k] = v.detach().cpu()
+        return out
+
+    inverse = torch.argsort(dcn_offset_perm(9))
+    dla = rename(model.backbone.state_dict(), DLA_TO_REFERENCE)
+    for k, v in dla.items():
+        if ".conv_offset_mask." in k:
+            dla[k] = v[inverse]
+        elif re.search(r"\.up_\d+\.weight$", k):
+            dla[k] = v.permute(2, 0, 1)[:, None].contiguous()
+    proc = rename(model.processor.state_dict(), PROCESSOR_TO_REFERENCE)
+    for t in ("tsfm_axis", "stacker.tsfm"):
+        hid = proc[f"{t}.linear.bias"].shape[0]
+        proc[f"{t}.encoder.norm.alpha"] = torch.ones(hid)
+        proc[f"{t}.encoder.norm.bias"] = torch.zeros(hid)
+        proc[f"{t}.encoder.pe.pe"] = torch.zeros(1, 900, hid)
+    return dla, proc
+
+
+def page_cache_share(path):
+    """Share of the file's pages that sit in the page cache (mincore(2))."""
+    libc = ctypes.CDLL(None, use_errno=True)
+    libc.mmap.restype = ctypes.c_void_p
+    libc.mmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_long]
+    libc.mincore.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
+                             ctypes.c_void_p]
+    libc.munmap.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    size = os.path.getsize(path)
+    pages = -(-size // mmap.PAGESIZE)
+    vec = (ctypes.c_ubyte * pages)()
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        addr = libc.mmap(None, size, mmap.PROT_READ, mmap.MAP_SHARED, fd, 0)
+        if addr in (None, ctypes.c_void_p(-1).value):
+            raise OSError(ctypes.get_errno(), f"mmap of {path}")
+        rc = libc.mincore(ctypes.c_void_p(addr), size, vec)
+        libc.munmap(ctypes.c_void_p(addr), size)
+        if rc:
+            raise OSError(ctypes.get_errno(), f"mincore of {path}")
+    finally:
+        os.close(fd)
+    return float((np.frombuffer(vec, np.uint8) & 1).mean())
+
+
+def evict_from_page_cache(path):
+    """Writes the file back and drops its pages from the page cache, so
+    that the next read comes from storage, as a user's first load does;
+    returns the share of its pages still cached (0 once evicted; tmpfs,
+    and a 9p mount that ignores the advice, keep them all)."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    return page_cache_share(path)
+
+
+def timed_load(path):
+    """Seconds of `load_torch_state_dict` on a file in the page cache."""
+    t0 = time.perf_counter()
+    load_torch_state_dict(path)
+    return time.perf_counter() - t0
+
+
+def reference_checkpoints():
+    """A user's start from reference checkpoints at full width: an
+    MGP-STR-base state dict in the reference layout (timm keys under
+    `module.` in {"model": ...}, heads of 38, 50257 and 30522) and a LORE
+    pair (DLASeg at the full LoreConfig() and the Processor, in
+    {"state_dict": ...}) written to a temporary directory, dropped from the
+    page cache (`cached_share_after_evict` says how much stayed), read
+    back by `load_torch_state_dict` and imported, each timed (the load
+    once more from the cache); then
+    `MGPSTRInference` with the mini BPE/WordPiece codecs runs `recognize()`
+    on 256 crops through K1 and K2, and the imported LORE runs `infer` at
+    B=8 x 768² through K3 and is checked against the CPU."""
+    t_phase = time.perf_counter()
+    rec = {"phase": "reference_checkpoints"}
+    cfg = MGPSTRConfig(variant="base")
+    with tempfile.TemporaryDirectory() as tmp, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        mgp_path = os.path.join(tmp, "mgp_str_base.pth")
+        torch.save({"model": {f"module.{k}": v for k, v in
+                              reference_mgp_str_state(
+                                  cfg, torch.Generator().manual_seed(11)
+                              ).items()}}, mgp_path)
+        source = LORE(LoreConfig(), seed=3)
+        reseed_offsets(source, seed=12)
+        dla_sd, proc_sd = reference_lore_pair(source)
+        dla_path = os.path.join(tmp, "model_best.pth")
+        proc_path = os.path.join(tmp, "processor_best.pth")
+        torch.save({"epoch": 1, "state_dict": {f"module.{k}": v
+                                               for k, v in dla_sd.items()}},
+                   dla_path)
+        torch.save({"epoch": 1, "state_dict": proc_sd}, proc_path)
+        # a cold start reads the files from storage, not from the page
+        # cache that torch.save just filled
+        rec["cached_share_after_evict"] = max(
+            evict_from_page_cache(p) for p in (mgp_path, dla_path, proc_path))
+
+        t0 = time.perf_counter()
+        sd = load_torch_state_dict(mgp_path)
+        t1 = time.perf_counter()
+        model = MGPSTR(cfg, seed=1)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        import_mgp_str(sd, model)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rec["mgp_str_s"] = {"load_after_evict": t1 - t0,
+                            "load_cached": timed_load(mgp_path),
+                            "build": t2 - t1, "import": t3 - t2,
+                            "file_mb": os.path.getsize(mgp_path) / 1e6}
+        t0 = time.perf_counter()
+        dla_loaded = load_torch_state_dict(dla_path)
+        proc_loaded = load_torch_state_dict(proc_path)
+        t1 = time.perf_counter()
+        lore = LORE(LoreConfig(), seed=4)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        import_dla(dla_loaded, lore.backbone)
+        import_lore_processor(proc_loaded, lore.processor)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rec["lore_s"] = {"load_after_evict": t1 - t0,
+                         "load_cached": (timed_load(dla_path)
+                                         + timed_load(proc_path)),
+                         "build": t2 - t1, "import": t3 - t2,
+                         "file_mb": (os.path.getsize(dla_path)
+                                     + os.path.getsize(proc_path)) / 1e6}
+        del sd, dla_loaded, proc_loaded
+    rec["unused_key_warnings"] = [str(w.message) for w in caught]
+    want = source.state_dict()
+    rec["lore_round_trip_equal"] = all(
+        torch.equal(v, want[k]) for k, v in lore.state_dict().items())
+    del source
+    true_vocab = {"char": cfg.num_char_classes, "bpe": cfg.bpe_vocab_size,
+                  "wp": cfg.wp_vocab_size}
+    rec["padded_bias_minus_1e4"] = all(
+        bool((getattr(model, f"{h}_head").bias[v:] == -1e4).all())
+        for h, v in true_vocab.items())
+
+    engine = MGPSTRInference(
+        model, CharCodec(),
+        BpeCodec.from_files(os.path.join(FIXTURES, "mini_gpt2_vocab.json"),
+                            os.path.join(FIXTURES, "mini_gpt2_merges.txt")),
+        WordpieceCodec.from_file(os.path.join(FIXTURES,
+                                              "mini_bert_vocab.txt")))
+    del model
+    images = np.random.default_rng(13).integers(0, 256, (256, 32, 128, 3),
+                                                dtype=np.uint8)
+    (out, texts), counts = counted(lambda: (engine(images),
+                                            engine.recognize(images)))
+    rec["recognizer_launches"] = counts
+    rec["recognize_first"] = texts[:4]
+    rec["padded_ids_returned"] = sum(
+        int((out[f"{h}_ids"] >= v).sum()) for h, v in true_vocab.items())
+    rec["heads_won"] = {h: sum(r[2] == h for r in texts)
+                        for h in ("char", "bpe", "wp")}
+    del engine
+    torch.cuda.empty_cache()
+
+    check_lore_vs_cpu(lore)
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    pages = torch.randn(8, 768, 768, 3, device="cuda", generator=gen)
+    with torch.inference_mode():
+        res, lore_counts = counted(lambda: lore.infer(pages))
+    rec["lore_launches"] = lore_counts
+    rec["lore_finite"] = all(bool(torch.isfinite(v).all())
+                             for v in res.values())
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    del lore, res
+    torch.cuda.empty_cache()
+    require(not rec["unused_key_warnings"],
+            f"importers left checkpoint tensors unused: {rec}")
+    require(rec["lore_round_trip_equal"] and rec["padded_bias_minus_1e4"]
+            and rec["padded_ids_returned"] == 0,
+            f"imported weights malformed: {rec}")
+    require(counts == {"fused_qkv_attention": 24, "vocab_greedy_decode": 4},
+            f"recognizer: launches {counts}, expected 12 K1 + 2 K2 a "
+            f"forward (two forwards)")
+    require(len(texts) == 256 and all(
+        0.0 <= c <= 1.0 and h in ("char", "bpe", "wp") for _, c, h in texts),
+        f"recognize() output malformed: {texts[:4]}")
+    require(lore_counts == {"deform_conv": 16} and rec["lore_finite"],
+            f"LORE.infer: launches {lore_counts}, expected 16 deform_conv")
+
+
+def lister_phase():
+    """LISTER, the fourth path: the JAX default LISTERConfig() (FocalNet-B:
+    embed 96, depths 2-2-9-2; nhead 8, window 11, max_ch 36), seeded
+    weights, `LISTERInference` in bf16 on 32x128 crops: crops/s at B=256
+    (best of 3 repetitions of 10 batches), p50/p99 latency at B=1, the
+    logits of 8 crops against the same weights in f32 on the CPU with
+    iters 0 and 2, and a profile of one batch. LISTER has no Pallas kernel,
+    so nothing may launch a port kernel."""
+    t_phase = time.perf_counter()
+    cfg = LISTERConfig()
+    fcfg = cfg.focalnet_config()
+    require(fcfg.embed_dim == 96 and fcfg.depths == (2, 2, 9, 2)
+            and cfg.nhead == 8 and cfg.window_size == 11
+            and cfg.max_ch == 36, "not the default LISTERConfig")
+    B, iters = 256, 10
+    images = np.random.default_rng(15).integers(0, 256, (B, 32, 128, 3),
+                                                dtype=np.uint8)
+    dev_images = torch.from_numpy(images).cuda()
+    errs = {}
+    for n_iters in (2, 0):             # the timed engine is the default's
+        model = LISTER(dataclasses.replace(cfg, iters=n_iters), seed=0)
+        engine = LISTERInference(model)
+        ref = LISTER(model.config, policy=FP32_POLICY, device="cpu")
+        ref.load_state_dict(model.state_dict())
+        x = normalize_crops(torch.from_numpy(images[:8]), torch.float32)
+        mask = torch.ones(x.shape[:3])
+        with torch.inference_mode():
+            got = engine.model(x.cuda().bfloat16(), mask.cuda().bfloat16())
+            want = ref(x, mask)
+        errs[f"iters{n_iters}"] = [rel_errors(g["logits"].cpu(),
+                                              w["logits"])[0]
+                                   for g, w in zip(got, want)]
+        del ref, model
+    engine.run(dev_images)[0].cpu()                       # warm up
+
+    def loop():
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            ids, _ = engine.run(dev_images)
+        ids.cpu()
+        return B * iters / (time.perf_counter() - t0)
+
+    reps, counts = counted(lambda: [loop() for _ in range(3)])
+    one = dev_images[:1]
+    engine.run(one)[0].cpu()
+    lats = []
+    for _ in range(60):
+        t0 = time.perf_counter()
+        engine.run(one)[0].cpu()
+        lats.append((time.perf_counter() - t0) * 1e3)
+    texts = engine.recognize(images[:8])
+    rec = {"phase": "lister", "config": "LISTERConfig(): FocalNet-B, iters 0",
+           "batch": B, "crops_per_s_reps": reps,
+           "crops_per_s_best": max(reps),
+           "p50_ms_b1": float(np.percentile(lats, 50)),
+           "p99_ms_b1": float(np.percentile(lats, 99)),
+           "logits_rel_rms_err_vs_cpu_f32": errs, "tol": LISTER_RTOL,
+           "launches": counts, "recognize_first": texts[:4],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    profile_steps("lister_profile",
+                  [lambda: engine.run(dev_images)[0].cpu()],
+                  step_ms=1e3 * B / max(reps))
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    del engine
+    torch.cuda.empty_cache()
+    require(counts == {}, f"LISTER launched a port kernel: {counts}")
+    require(max(max(v) for v in errs.values()) <= LISTER_RTOL,
+            f"LISTER on the card disagrees with the CPU: {errs}")
+    require(len(texts) == 8 and all(0.0 <= c <= 1.0 and h == "lister"
+                                    for _, c, h in texts),
+            f"LISTER recognize() output malformed: {texts}")
 
 
 class PlainAttention(torch.autograd.Function):
@@ -1061,6 +1551,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": seconds, "ptxas": ptxas})
 
+    golden_replay()
+
     gen = torch.Generator(device="cuda").manual_seed(0)
     for B, S, H in ((3, 17, 2), (2, 64, 1), (4, 100, 3), (2, 700, 2)):
         check_attention(B, S, H, True, gen, time_it=False)
@@ -1149,6 +1641,8 @@ def main() -> int:
     del lore
     torch.cuda.empty_cache()
     f32_models_phase()
+    reference_checkpoints()
+    lister_phase()
 
     bwd_err = 0.0
     # both sides of the 64-row tiles and of a 16-row short last chunk, one

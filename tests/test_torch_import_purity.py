@@ -1,7 +1,8 @@
-"""The port imports neither JAX nor the JAX package, and importing it builds
-no kernel: every module of `advancedliteratemachinery_tpu_torch` and the
-module-level code of `chip_smoke.py` import in a process where both are
-blocked."""
+"""The port imports neither JAX nor the JAX package, nor `regex` or
+`safetensors` (the card's machine has none of them), and importing it
+builds no kernel: every module of `advancedliteratemachinery_tpu_torch` and
+the module-level code of `chip_smoke.py` and `k4_repeats.py` import in a
+process where all of them are blocked."""
 
 import pathlib
 import subprocess
@@ -19,17 +20,20 @@ def test_port_imports_without_jax():
         if p.relative_to(ROOT / PKG).parts[0] != "build")
     modules = [m.removesuffix(".__init__") for m in modules]
     assert f"{PKG}.ops.attention" in modules
+    assert f"{PKG}.engine.checkpoint" in modules
+    assert f"{PKG}.codecs.subword" in modules
     code = textwrap.dedent(f"""
         import importlib, sys
-        for name in ("jax", "jaxlib", "flax", "advancedliteratemachinery_tpu"):
+        for name in ("jax", "jaxlib", "flax", "advancedliteratemachinery_tpu",
+                     "regex", "safetensors"):
             sys.modules[name] = None          # any import of them raises
         for m in {modules!r}:
             importlib.import_module(m)
-        import chip_smoke
+        import chip_smoke, k4_repeats
         from {PKG}.ops import _kernels
         assert not _kernels._LIBS and not any(_kernels.LAUNCHES.values())
-        assert not any(m.startswith(("jax", "flax")) and sys.modules[m]
-                       for m in sys.modules)
+        assert not any(m.startswith(("jax", "flax", "regex", "safetensors"))
+                       and sys.modules[m] for m in sys.modules)
         print("ok", len({modules!r}))
     """)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

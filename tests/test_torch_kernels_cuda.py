@@ -421,3 +421,112 @@ def test_engine_fused_decode_on_card(gen, fused_decode, k2):
     for head in ("char", "bpe", "wp"):
         same = (out[f"{head}_ids"] == ref[f"{head}_ids"]).float().mean()
         assert same.item() >= 0.95, head
+
+
+@pytest.fixture
+def no_tf32():
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = saved
+
+
+@pytest.mark.parametrize("family", ["mgp_str", "lore", "lister"])
+def test_golden_replays_on_card(gen, no_tf32, family):
+    """tests/golden/{family}.pth through the port's loader and importer
+    into the port's model in f32 on the card (TF32 off), against the
+    committed outputs at the golden tolerance; chip_smoke.py holds the
+    golden configurations and tolerances."""
+    import os
+
+    import chip_smoke as cs
+    from advancedliteratemachinery_tpu_torch.engine import checkpoint as ck
+    from advancedliteratemachinery_tpu_torch.models.lister import LISTER
+
+    sd = ck.load_torch_state_dict(os.path.join(cs.GOLDEN_DIR,
+                                               f"{family}.pth"))
+    data = np.load(os.path.join(cs.GOLDEN_DIR, f"{family}.npz"))
+    image = torch.from_numpy(data["in_image"]).cuda()
+    with torch.inference_mode():
+        if family == "mgp_str":
+            model = MGPSTR(cs.GOLDEN_MGP_STR, policy=FP32_POLICY)
+            ck.import_mgp_str(sd, model)
+            got = model(image)
+        elif family == "lore":
+            model = DLASeg(cs.GOLDEN_DLASEG, policy=FP32_POLICY)
+            ck.import_dla(sd, model)
+            got = model(image)
+        else:
+            model = LISTER(cs.GOLDEN_LISTER, policy=FP32_POLICY)
+            ck.import_lister(sd, model)
+            got = model(image, torch.from_numpy(data["in_mask"]).cuda())[-1]
+    tol = cs.GOLDEN_TOL[family]
+    outs = [k[4:] for k in data.files if k.startswith("out_")]
+    assert outs
+    for name in outs:
+        want = data[f"out_{name}"]
+        np.testing.assert_allclose(
+            got[name].float().cpu().numpy()[..., :want.shape[-1]], want,
+            rtol=tol, atol=tol, err_msg=name)
+
+
+def test_imported_engine_launches_k1_and_k2(gen):
+    """A reference-layout MGP-STR checkpoint (chip_smoke's generator) at a
+    kernel-eligible width through `import_mgp_str`: the bf16 engine runs
+    K1 in each layer and K2 for the BPE and WordPiece heads, and never
+    returns a padded id."""
+    import chip_smoke as cs
+    from advancedliteratemachinery_tpu_torch.engine import checkpoint as ck
+
+    cfg = MGPSTRConfig(vit=ViTConfig(embed_dim=192, depth=2, num_heads=3),
+                       bpe_vocab_size=1000, wp_vocab_size=1100)
+    model = MGPSTR(cfg, policy=DEFAULT_POLICY, seed=5)
+    ck.import_mgp_str(cs.reference_mgp_str_state(
+        cfg, torch.Generator().manual_seed(7)), model)
+    images = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (6, 32, 128, 3), dtype=np.uint8)).cuda()
+    engine = MGPSTRInference(model, CharCodec())
+    before = dict(_kernels.LAUNCHES)
+    out = engine.run(images)
+    torch.cuda.synchronize()
+    launched = {k: v - before.get(k, 0)
+                for k, v in _kernels.LAUNCHES.items()
+                if v != before.get(k, 0)}
+    assert launched == {"fused_qkv_attention": 2, "vocab_greedy_decode": 2}
+    for head, v in (("char", 38), ("bpe", 1000), ("wp", 1100)):
+        assert int(out[f"{head}_ids"].max()) < v, head
+
+
+def test_lister_engine_on_card_matches_cpu(gen):
+    """LISTERInference in bf16 on the card against the same weights in f32
+    on the CPU (FocalNet-tiny, iters 1): logits within chip_smoke's
+    LISTER_RTOL (relative RMS), and no port kernel launched."""
+    import chip_smoke as cs
+    from advancedliteratemachinery_tpu_torch.engine.infer import (
+        LISTERInference)
+    from advancedliteratemachinery_tpu_torch.models.lister import (
+        LISTER, LISTERConfig)
+    from advancedliteratemachinery_tpu_torch.ops.image import normalize_crops
+
+    cfg = LISTERConfig(variant="tiny", iters=1, max_ch=12)
+    model = LISTER(cfg, seed=2)
+    ref = LISTER(cfg, policy=FP32_POLICY, device="cpu")
+    ref.load_state_dict(model.state_dict())
+    images = np.random.default_rng(9).integers(0, 256, (4, 32, 128, 3),
+                                               dtype=np.uint8)
+    engine = LISTERInference(model)
+    before = dict(_kernels.LAUNCHES)
+    x = normalize_crops(torch.from_numpy(images), torch.float32)
+    mask = torch.ones(x.shape[:3])
+    with torch.inference_mode():
+        got = engine.model(x.cuda().bfloat16(), mask.cuda().bfloat16())
+        want = ref(x, mask)
+    texts = engine.recognize(images)
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHES) == before
+    for g, w in zip(got, want):
+        assert _rel(g["logits"].float().cpu(), w["logits"]) <= cs.LISTER_RTOL
+    assert len(texts) == 4 and all(h == "lister" for *_, h in texts)

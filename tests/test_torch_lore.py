@@ -33,6 +33,7 @@ from advancedliteratemachinery_tpu.ops import heatmap as jheat
 from advancedliteratemachinery_tpu.ops.deform_conv import (
     DeformConv2d as JDeformConv2d)
 from advancedliteratemachinery_tpu_torch.core.precision import FP32_POLICY
+from advancedliteratemachinery_tpu_torch.engine import checkpoint as port_ck
 from advancedliteratemachinery_tpu_torch.engine.convert import (
     flax_state_dict, load_flax_params)
 from advancedliteratemachinery_tpu_torch.models.dla import (
@@ -214,50 +215,79 @@ def _tie_maps(seed=0):
     return logits, maps
 
 
-@pytest.mark.parametrize("k", [5, 24, 60])
-def test_decode_ties_give_the_same_inds(k):
+TIE_KS = (5, 24, 60)
+
+
+@pytest.fixture(scope="module")
+def tie_refs():
+    """The JAX side of the tie tests for every K, built once: the heat
+    maps' clamped sigmoid, the top-K peaks, the cell decode and the corner
+    decode, each K one jitted call."""
+    logits, m = _tie_maps()
+    j = {n: jnp.asarray(v) for n, v in m.items()}
+
+    def refs(logits, j, k):
+        j_hm = jheat.sigmoid_clamped(logits)
+        return (j_hm, jheat.topk_peaks(jheat.heatmap_peaks(j_hm), k),
+                jheat.ctdet_4ps_decode(j_hm[..., :1], j["wh"], j["ax"],
+                                       j["cr"], reg=j["reg"], k=k),
+                jheat.corner_decode(j_hm[..., 1:], j["st"], j["reg"], k=k))
+
+    run = jax.jit(refs, static_argnums=2)
+    return {k: jax.tree_util.tree_map(np.asarray,
+                                      run(jnp.asarray(logits), j, k))
+            for k in TIE_KS}
+
+
+@pytest.mark.parametrize("k", TIE_KS)
+def test_decode_ties_give_the_same_inds(k, tie_refs):
     logits, m = _tie_maps()
     t = {n: torch.from_numpy(v) for n, v in m.items()}
-    j = {n: jnp.asarray(v) for n, v in m.items()}
-    j_hm = jheat.sigmoid_clamped(jnp.asarray(logits))
+    j_hm, want_peaks, want_cells, want_corners = tie_refs[k]
     t_hm = theat.sigmoid_clamped(torch.from_numpy(logits))
-    np.testing.assert_array_equal(t_hm.numpy(), np.asarray(j_hm))
+    np.testing.assert_array_equal(t_hm.numpy(), j_hm)
 
-    want = jheat.topk_peaks(jheat.heatmap_peaks(j_hm), k)
     got = theat.topk_peaks(theat.heatmap_peaks(t_hm), k)
     for key in ("inds", "clses", "scores", "ys", "xs"):
-        np.testing.assert_array_equal(got[key].numpy(),
-                                      np.asarray(want[key]), err_msg=key)
+        np.testing.assert_array_equal(got[key].numpy(), want_peaks[key],
+                                      err_msg=key)
 
-    want = jheat.ctdet_4ps_decode(j_hm[..., :1], j["wh"], j["ax"], j["cr"],
-                                  reg=j["reg"], k=k)
     got = theat.ctdet_4ps_decode(t_hm[..., :1], t["wh"], t["ax"], t["cr"],
                                  reg=t["reg"], k=k)
-    np.testing.assert_array_equal(got["inds"].numpy(),
-                                  np.asarray(want["inds"]))
+    np.testing.assert_array_equal(got["inds"].numpy(), want_cells["inds"])
     for key in ("detections", "cr_feat", "ax_feat", "centers"):
-        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+        np.testing.assert_allclose(got[key].numpy(), want_cells[key],
                                    rtol=1e-6, atol=1e-6, err_msg=key)
 
-    want = jheat.corner_decode(j_hm[..., 1:], j["st"], j["reg"], k=k)
     got = theat.corner_decode(t_hm[..., 1:], t["st"], t["reg"], k=k)
-    np.testing.assert_array_equal(got["inds"].numpy(),
-                                  np.asarray(want["inds"]))
-    np.testing.assert_allclose(got["gboxes"].numpy(),
-                               np.asarray(want["gboxes"]), rtol=1e-6,
-                               atol=1e-6)
+    np.testing.assert_array_equal(got["inds"].numpy(), want_corners["inds"])
+    np.testing.assert_allclose(got["gboxes"].numpy(), want_corners["gboxes"],
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_golden_replay_into_port_dlaseg(monkeypatch):
-    """tests/golden/lore.pth (a torch DLASeg artifact) → the JAX package's
-    `import_dla` onto a zero-filled tree from `jax.eval_shape` → carried
-    over by engine/convert → the port's DLASeg must give the committed
-    outputs at the golden's own tolerance. (Tracing the windowed DCN only
-    for its shapes takes seconds; the gather form has the same ones.)"""
+    """tests/golden/lore.pth (a torch DLASeg artifact) → the port's own
+    `load_torch_state_dict` and `import_dla` → the port's DLASeg must give
+    the committed outputs at the golden's own tolerance. The JAX route (the
+    JAX loader and `import_dla` onto a zero-filled tree from
+    `jax.eval_shape`, carried over by engine/convert) must give exactly the
+    same state dict. (Tracing the windowed DCN only for its shapes takes
+    seconds; the gather form has the same ones.)"""
     monkeypatch.setattr(jdla, "DeformConv2d", GatherDeformConv2d)
     pth = os.path.join(G.GOLDEN_DIR, "lore.pth")
     data = np.load(os.path.join(G.GOLDEN_DIR, "lore.npz"))
     M = DLA_IMPORT
+    cfg = DLASegConfig(dla=DLAConfig(levels=M.LEVELS, channels=M.CH),
+                       head_conv=M.HEAD_CONV, heads=M.HEADS)
+    tm = DLASeg(cfg, policy=FP32_POLICY, device="cpu")
+    got_sd = port_ck.import_dla(port_ck.load_torch_state_dict(pth), tm)
+    with torch.no_grad():
+        got = tm(torch.from_numpy(data["in_image"]))
+    rtol, atol = G.TOLERANCES["lore"]
+    for head in ("hm", "reg"):
+        np.testing.assert_allclose(got[head].numpy(), data[f"out_{head}"],
+                                   rtol=rtol, atol=atol, err_msg=head)
+
     jcfg = jdla.DLASegConfig(dla=jdla.DLAConfig(levels=M.LEVELS,
                                                 channels=M.CH),
                              head_conv=M.HEAD_CONV, heads=M.HEADS)
@@ -268,16 +298,11 @@ def test_golden_replay_into_port_dlaseg(monkeypatch):
     zeros = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
                                    shapes)
     variables = import_dla(load_torch_state_dict(pth), dict(zeros))
-    cfg = DLASegConfig(dla=DLAConfig(levels=M.LEVELS, channels=M.CH),
-                       head_conv=M.HEAD_CONV, heads=M.HEADS)
-    tm = load_flax_params(DLASeg(cfg, policy=FP32_POLICY, device="cpu"),
-                          variables["params"], variables["batch_stats"])
-    with torch.no_grad():
-        got = tm(torch.from_numpy(data["in_image"]))
-    rtol, atol = G.TOLERANCES["lore"]
-    for head in ("hm", "reg"):
-        np.testing.assert_allclose(got[head].numpy(), data[f"out_{head}"],
-                                   rtol=rtol, atol=atol, err_msg=head)
+    want_sd = flax_state_dict(tm, variables["params"],
+                              variables["batch_stats"])
+    assert set(got_sd) == set(want_sd)
+    for k, v in want_sd.items():
+        assert torch.equal(got_sd[k], v), k
 
 
 def test_convert_rejects_mismatched_lore_trees(lore_pair):
