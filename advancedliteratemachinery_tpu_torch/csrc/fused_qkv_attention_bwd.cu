@@ -166,6 +166,19 @@ __device__ __forceinline__ void load_frags(uint32_t (&a)[HD / 16][4],
     }
 }
 
+// A fragments in registers. The PTX ISA leaves undefined any write to a
+// register that holds an A fragment of a wgmma.mma_async before a
+// wgmma.wait_group covers that wgmma's group. A fragment array that is dead
+// in the C++ code after the asm that issues the product is free for the
+// register allocator to hand to the next instruction (a load, a temporary),
+// while the tensor cores may still read it. So every A fragment of a product
+// left in flight is owned by a scope that outlives the product and is
+// fenced (`sm90::fence_operands`, which the compiler must treat as a read
+// and a write of every register) after the wait that covers it: the
+// consumer's own fragments at tile level, fenced after the tile's last wait;
+// the dS fragments of the row pass and of the column pass at tile level,
+// fenced after the next chunk's first wait; the column pass's p fragments
+// are waited for before col_step returns.
 using Frags = uint32_t[HD / 16][4];
 
 // x = A0 B0^T, then y = A1 B1^T, over one chunk of NK rows of B (wgmma RS:
@@ -195,11 +208,12 @@ __device__ __forceinline__ void await(float (&d)[R]) {
     sm90::fence_operands(d);
 }
 
-// d += A (NK/16 k-steps of bf16 fragments in registers) . B (MN-major at
-// `b`), as one commit group left in flight
+// d += A (the first NK/16 k-steps of bf16 fragments in registers) . B
+// (MN-major at `b`), as one commit group left in flight. `a` must stay
+// untouched until a wait covers the group: the caller owns it and fences it
+// after that wait (see the note on A fragments above).
 template <int NK>
-__device__ __forceinline__ void rs_product(float (&d)[32],
-                                           uint32_t (&a)[NK / 16][4],
+__device__ __forceinline__ void rs_product(float (&d)[32], Frags& a,
                                            uint64_t b) {
     sm90::fence_operands(d);
     sm90::fence_operands(a);
@@ -244,18 +258,20 @@ __device__ __forceinline__ void row_stats_step(const Frags& dq,
     for (int i = 0; i < NK / 2; ++i) rr[(i >> 1) & 1] += s[i] * dp[i];
 }
 
-// Row pass, walk 2: p and dP of one chunk again, dS rounded in registers,
-// dQ += dS K (K MN-major at `dk_mn`), left in flight: the next chunk's
-// products queue behind it and the first wait covers it (`finish` after
-// the last).
+// Row pass, walk 2: p and dP of one chunk again, dS rounded in registers
+// (`dsa`, the caller's), dQ += dS K (K MN-major at `dk_mn`), left in
+// flight: the next chunk's products queue behind it and its first wait
+// covers it, after which `dsa` may be written again (`finish` after the
+// last).
 template <int NK>
 __device__ __forceinline__ void row_grad_step(
     const Frags& dq, const Frags& ddo, uint64_t dk, uint64_t dv,
     uint64_t dk_mn, int left, float sl2, int t, const float (&lse)[2],
-    const float (&r)[2], float (&acc)[32]) {
+    const float (&r)[2], Frags& dsa, float (&acc)[32]) {
     float s[NK / 2], dp[NK / 2];
     two_products<NK>(s, dp, dq, dk, ddo, dv);
     await<1>(s);
+    sm90::fence_operands(dsa);     // the previous dS K has read them
     attn::scale_mask<NK>(s, left, sl2, t);
 #pragma unroll
     for (int i = 0; i < NK / 2; ++i)
@@ -263,7 +279,6 @@ __device__ __forceinline__ void row_grad_step(
     await<0>(dp);
     // the C layout of score columns 16k..16k+15 is the A layout of the
     // k-th step of dS K
-    uint32_t dsa[NK / 16][4];
 #pragma unroll
     for (int j = 0; j < NK / 8; ++j) {
         float ds[4];
@@ -276,9 +291,14 @@ __device__ __forceinline__ void row_grad_step(
     rs_product<NK>(acc, dsa, dk_mn);
 }
 
-// wait for the products still in flight on `acc`
-__device__ __forceinline__ void finish(float (&acc)[32]) {
+// wait for every product still in flight, then release the A fragments
+// they read and read `acc`
+__device__ __forceinline__ void finish(float (&acc)[32], Frags& a0,
+                                       Frags& a1, Frags& ds) {
     sm90::wgmma_wait<0>();
+    sm90::fence_operands(a0);
+    sm90::fence_operands(a1);
+    sm90::fence_operands(ds);
     sm90::fence_operands(acc);
 }
 
@@ -288,12 +308,15 @@ __device__ __forceinline__ void finish(float (&acc)[32]) {
 // past `left` (the chunk's valid ones) give p = dS = 0 by selects, since
 // their statistics are never written. dV += bf16(p^T) dO goes to the
 // tensor cores while dP^T is waited for and dS^T formed, then dK +=
-// dS^T Q (dO, Q MN-major); both are left in flight as in row_grad_step.
+// dS^T Q (dO, Q MN-major). dK's product is left in flight as in
+// row_grad_step, on the caller's `dsa`; dV's is waited for before the
+// return, which costs nothing (it ran while dS^T was formed) and lets its
+// p fragments die with the step.
 template <int NK>
 __device__ __forceinline__ void col_step(
     const Frags& dk, const Frags& dv, uint64_t dq, uint64_t ddo,
     uint64_t dq_mn, uint64_t ddo_mn, const float* st, int left, float sl2,
-    int t, float (&acc_k)[32], float (&acc_v)[32]) {
+    int t, Frags& dsa, float (&acc_k)[32], float (&acc_v)[32]) {
     // issued before the products, so that they land while those run
     float4 sv[NK / 8];
 #pragma unroll
@@ -303,7 +326,8 @@ __device__ __forceinline__ void col_step(
     float s[NK / 2], dp[NK / 2];
     two_products<NK>(s, dp, dk, dq, dv, ddo);
     await<1>(s);
-    uint32_t pa[NK / 16][4];
+    sm90::fence_operands(dsa);     // the previous dK product has read them
+    Frags pa;
 #pragma unroll
     for (int j = 0; j < NK / 8; ++j) {
 #pragma unroll
@@ -319,7 +343,6 @@ __device__ __forceinline__ void col_step(
     }
     rs_product<NK>(acc_v, pa, ddo_mn);
     await<1>(dp);
-    uint32_t dsa[NK / 16][4];
 #pragma unroll
     for (int j = 0; j < NK / 8; ++j) {
         float ds[4];
@@ -333,6 +356,9 @@ __device__ __forceinline__ void col_step(
         dsa[j / 2][(j % 2) * 2 + 1] = attn::pack_bf16(ds[2], ds[3]);
     }
     rs_product<NK>(acc_k, dsa, dq_mn);
+    sm90::wgmma_wait<1>();         // dV's product: done with pa
+    sm90::fence_operands(pa);
+    sm90::fence_operands(acc_v);
 }
 
 // One pass over one (batch, head). The consumer's own pair (a0, a1) and
@@ -424,7 +450,15 @@ bwd_kernel(const __grid_constant__ CUtensorMap map_a0,
         sm90::mbar_wait(&own_full[wg], c & 1);
         load_frags(fa0, mine, warp % 4, lane);
         load_frags(fa1, mine + TILE_BYTES, warp % 4, lane);
+        // The producer refills the slot by TMA, an async-proxy write, once
+        // every consumer thread has arrived. The mbarrier's release orders
+        // these ldmatrix reads only within the generic proxy; the PTX
+        // memory model orders generic-proxy accesses before async-proxy
+        // ones through a proxy fence alone, so each thread fences its reads
+        // before it arrives (a few cycles, once a tile).
+        sm90::fence_proxy_async();
         sm90::mbar_arrive(&own_empty[wg]);     // each after its own reads
+        Frags dsa = {};                        // dS fragments (see Frags)
         if constexpr (PASS == ROWS) {
             float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f},
                   rr[2] = {0.f, 0.f};
@@ -462,12 +496,13 @@ bwd_kernel(const __grid_constant__ CUtensorMap map_a0,
                 const uint64_t dk_mn = sm90::desc_sw128_mn(kv);
                 if (j == last && short_tail)
                     row_grad_step<16>(fa0, fa1, dk, dv, dk_mn, tail, p.sl2,
-                                      t, lse, r, acc);
+                                      t, lse, r, dsa, acc);
                 else
                     row_grad_step<64>(fa0, fa1, dk, dv, dk_mn,
-                                      p.S - j * TILE, p.sl2, t, lse, r, acc);
+                                      p.S - j * TILE, p.sl2, t, lse, r, dsa,
+                                      acc);
             }
-            finish(acc);
+            finish(acc, fa0, fa1, dsa);
             const float f[2] = {p.out_scale, p.out_scale};
             attn::store_rows(acc, f, out, row, p.S, 3 * D, t);   // dQ
         } else {
@@ -483,12 +518,12 @@ bwd_kernel(const __grid_constant__ CUtensorMap map_a0,
                 const float* st = stats + 2 * j * TILE;
                 if (j == last && short_tail)
                     col_step<16>(fa0, fa1, dq, ddo, dq_mn, ddo_mn, st, tail,
-                                 p.sl2, t, acc_k, acc_v);
+                                 p.sl2, t, dsa, acc_k, acc_v);
                 else
                     col_step<64>(fa0, fa1, dq, ddo, dq_mn, ddo_mn, st,
-                                 p.S - j * TILE, p.sl2, t, acc_k, acc_v);
+                                 p.S - j * TILE, p.sl2, t, dsa, acc_k, acc_v);
             }
-            finish(acc_k);
+            finish(acc_k, fa0, fa1, dsa);
             sm90::fence_operands(acc_v);
             const float fk[2] = {p.out_scale, p.out_scale};
             const float fv[2] = {1.f, 1.f};

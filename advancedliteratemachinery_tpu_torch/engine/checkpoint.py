@@ -465,3 +465,137 @@ def import_lister(sd: Dict[str, torch.Tensor], model: nn.Module
     out.update({f"decoder.{k}": v for k, v in m.finish().items()})
     return out
 
+
+
+# ---------------- LevOCR: ABINet vision, LevT, the whole model ----------------
+
+
+def import_abinet_vision(sd: Dict[str, torch.Tensor],
+                         model: nn.Module) -> Dict[str, torch.Tensor]:
+    """LevOCR's BaseVision (OCR/LevOCR/abinet: resnet.py:50 ResNet45,
+    backbone.py:13 ResTranformer, model_vision.py:23 PositionAttention,
+    :75 BaseVision), keys under LevOCR's `vision.`, into the port's
+    `ABINetVision`. The sincos position tables are fixed on both sides and
+    not imported.
+
+    The U-Net key path's convs carry a bias in the reference
+    (`nn.Conv2d` defaults to one) and feed an eval-mode BatchNorm, which the
+    port's `ConvBN` has no conv bias for: BN((x + b) - mean) = BN(x - (mean
+    - b)), so each bias is folded into its BatchNorm's running mean. (The
+    JAX importer reads these biases not at all.)"""
+    m = _Mapper(sd, model, "import_abinet_vision", "vision.")
+    p = m.p
+
+    def conv_bn(dst: str, conv: str, bn: str, bias: bool = False) -> None:
+        m.put(f"{dst}.conv.weight", p[f"{conv}.weight"])
+        m.bn(f"{dst}.bn", bn)
+        if bias:
+            m.put(f"{dst}.bn.running_mean",
+                  p[f"{bn}.running_mean"] - p[f"{conv}.bias"])
+
+    conv_bn("resnet.stem", "backbone.resnet.conv1", "backbone.resnet.bn1")
+    for s, (_, blocks, _) in enumerate(model.resnet.PLAN):
+        for b in range(blocks):
+            src, dst = f"backbone.resnet.layer{s + 1}.{b}.", \
+                f"resnet.layer{s}_block{b}."
+            conv_bn(dst + "conv1", src + "conv1", src + "bn1")
+            conv_bn(dst + "conv2", src + "conv2", src + "bn2")
+            if getattr(model.resnet, f"layer{s}_block{b}").downsample:
+                conv_bn(dst + "downsample", src + "downsample.0",
+                        src + "downsample.1")
+    for i in range(model.config.backbone_layers):
+        src = f"backbone.transformer.layers.{i}."
+        m.put(f"tfm{i}.qkv.weight", p[src + "self_attn.in_proj_weight"])
+        m.put(f"tfm{i}.qkv.bias", p[src + "self_attn.in_proj_bias"])
+        for ours, theirs in (("proj", "self_attn.out_proj"),
+                             ("ff1", "linear1"), ("ff2", "linear2"),
+                             ("norm1", "norm1"), ("norm2", "norm2")):
+            m.copy(f"tfm{i}.{ours}", src + theirs)
+    for j in range(4):
+        # encoder_layer: Sequential(conv, bn, relu); decoder_layer:
+        # Sequential(upsample, conv, bn, relu)
+        conv_bn(f"attention.k_enc{j}", f"attention.k_encoder.{j}.0",
+                f"attention.k_encoder.{j}.1", bias=True)
+        conv_bn(f"attention.k_dec{j}", f"attention.k_decoder.{j}.1",
+                f"attention.k_decoder.{j}.2", bias=True)
+    m.copy("attention.project", "attention.project")
+    m.copy("cls", "cls")
+    return m.finish()
+
+
+def _levt_layer(m: _Mapper, dst: str, src: str) -> None:
+    """A fairseq TransformerDecoderLayer (levt/transformer_layer.py:
+    separate q/k/v projections, post-norm; its cross-attention never runs,
+    levenshtein_transformer.py:459) → `PostNormSelfAttnLayer`."""
+    for ours, theirs in (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+                         ("v", "self_attn.v_proj"),
+                         ("out", "self_attn.out_proj"), ("ff1", "fc1"),
+                         ("ff2", "fc2"), ("norm1", "self_attn_layer_norm"),
+                         ("norm2", "final_layer_norm")):
+        m.copy(dst + ours, src + theirs)
+
+
+def import_levt(sd: Dict[str, torch.Tensor],
+                model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The LevT half of a LevOCR checkpoint, keys under `levt.`
+    (levenshtein_transformer.py:387 the BERT-embedded text stack, :523 the
+    fusion stack and its tied heads), into `model.text_encoder` and
+    `model.decoder` of the port's `LevOCR`. Position tables longer than the
+    model's are sliced; the text stack's constant token-type row is folded
+    into its position table. fairseq ties the decoder's input and output
+    embeddings, so the state dict names one tensor twice: both are read,
+    and a checkpoint in which they differ raises `ValueError`."""
+    parts = nn.ModuleDict({"text_encoder": model.text_encoder,
+                           "decoder": model.decoder})
+    m = _Mapper(sd, parts, "import_levt", "levt.")
+    p = m.p
+    emb = "encoder.text_embeddings."
+    L = model.config.max_len
+    m.put("text_encoder.word_emb.weight", p[emb + "word_embeddings.weight"])
+    m.put("text_encoder.pos_emb.weight",
+          p[emb + "position_embeddings.weight"][:L]
+          + p[emb + "token_type_embeddings.weight"][0][None])
+    m.copy("text_encoder.emb_ln", emb + "LayerNorm")
+    for i in range(model.config.layers):
+        _levt_layer(m, f"text_encoder.layer_{i}.", f"encoder.layers.{i}.")
+    out_proj = p["decoder.output_projection.weight"]
+    if "decoder.embed_tokens.weight" in p and not torch.equal(
+            p["decoder.embed_tokens.weight"], out_proj):
+        raise ValueError(
+            "import_levt: decoder.embed_tokens.weight differs from "
+            "decoder.output_projection.weight; the reference always ties "
+            "them (share_decoder_input_output_embed)")
+    m.put("decoder.word_emb_out.weight", out_proj)
+    for ours, theirs in (("mask_ins_emb", "embed_mask_ins"),
+                         ("word_del_emb", "embed_word_del"),
+                         ("type_emb", "token_type_embeddings"),
+                         ("img_proj", "img_embed_dim")):
+        m.put(f"decoder.{ours}.weight", p[f"decoder.{theirs}.weight"])
+    m.put("decoder.text_pos", p["decoder.text_pos_emb"][:, :L])
+    m.put("decoder.img_pos",
+          p["decoder.img_pos_emb"][:, :model.decoder.img_pos.shape[1]])
+    for i in range(model.config.layers):
+        _levt_layer(m, f"decoder.layer_{i}.", f"decoder.layers.{i}.")
+    return m.finish()
+
+
+def import_levocr(sd: Dict[str, torch.Tensor], model: nn.Module
+                  ) -> Dict[str, torch.Tensor]:
+    """A whole LevOCR checkpoint (models.py:145 LevOCRModel: `vision.*`,
+    the image-token convs `conv4_1`/`bn4_1` and `conv4_2`/`bn4_2`, and
+    `levt.*`) into the port's `LevOCR`; returns its state dict. Tensors
+    outside those names that nothing reads are reported as unused."""
+    out = {f"vision.{k}": v for k, v in
+           import_abinet_vision(sd, model.vision).items()}
+    out.update(import_levt(sd, model))
+    rest = {k: v for k, v in sd.items()
+            if not k.startswith(("vision.", "levt."))}
+    convs = nn.ModuleDict({"img_conv1": model.img_conv1,
+                           "img_conv2": model.img_conv2})
+    m = _Mapper(rest, convs, "import_levocr")
+    for ours, conv, bn in (("img_conv1", "conv4_1", "bn4_1"),
+                           ("img_conv2", "conv4_2", "bn4_2")):
+        m.put(f"{ours}.conv.weight", m.p[f"{conv}.weight"])
+        m.bn(f"{ours}.bn", bn)
+    out.update(m.finish())
+    return out

@@ -1,6 +1,6 @@
-"""Batched MGP-STR and LISTER inference (port of
-`advancedliteratemachinery_tpu/engine/infer.py` `MGPSTRInference` and
-`LISTERInference`).
+"""Batched MGP-STR, LISTER and LevOCR inference (port of
+`advancedliteratemachinery_tpu/engine/infer.py` `MGPSTRInference`,
+`LISTERInference` and `LevOCRInference`).
 
 On the device: normalize → forward → greedy ids and cumulative confidence
 per head. With `fused_decode="auto"` a head goes through the fused vocab
@@ -14,6 +14,12 @@ confident head.
 LISTER: on the device, normalize → an all-ones mask → the forward → greedy
 ids (first on ties), max-prob and the cumulative confidence of the last
 decode; on the host, `EosSeqCodec.decode`.
+
+LevOCR: on the device, normalize (float32, the JAX engine's input dtype)
+→ `LevOCR.refine` (vision prediction, then the fixed rounds of Levenshtein
+refinement); on the host, `LevtDictionary.decode` and the confidence, exp
+of the mean of the final scores with non-finite ones counted as 0, in
+float64.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from advancedliteratemachinery_tpu_torch.codecs.char_codec import CharCodec
 from advancedliteratemachinery_tpu_torch.codecs.seq_codec import EosSeqCodec
 from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.models.layers import linear
+from advancedliteratemachinery_tpu_torch.models.levocr import LevtDictionary
 from advancedliteratemachinery_tpu_torch.ops.image import normalize_crops
 from advancedliteratemachinery_tpu_torch.ops.vocab_decode import (
     matmul_greedy_decode, supports_fused_decode)
@@ -203,3 +210,44 @@ class LISTERInference:
         ids, conf = self.run(x)
         texts = self.codec.decode(ids.cpu().numpy())
         return [(t, float(c), "lister") for t, c in zip(texts, conf.cpu())]
+
+
+class LevOCRInference:
+    """Batched LevOCR (the JAX `LevOCRInference`; reference eval.py:139
+    generate loop): vision prediction and Levenshtein refinement on the
+    device, strings through the fairseq-style dictionary on the host. The
+    engine keeps its own copy of `model` on `device` (the GPU unless
+    `device="cpu"`), with its Linear and conv weights cast to the compute
+    dtype once. Crops are normalized in float32, the JAX engine's default
+    `input_dtype`."""
+
+    def __init__(self, model,
+                 device: Union[str, torch.device, None] = None):
+        self.device = resolve_device(device)
+        self.model = copy.deepcopy(model).to(self.device).eval()
+        # the value each Linear and conv casts its weight to anyway (flax
+        # Dense and Conv with `dtype`), made once; norms, embeddings and
+        # position tables keep float32, as the JAX engine keeps them
+        for m in self.model.modules():
+            if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
+                m.to(model.policy.compute_dtype)
+        self.model.requires_grad_(False)
+        self.dictionary = LevtDictionary(max_len=model.config.max_len)
+
+    @torch.inference_mode()
+    def run(self, images_u8: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """uint8 [B, 32, 128, 3] tensor on the device → (tokens [B, L]
+        int32, scores [B, L] float32) on the device."""
+        out = self.model.refine(normalize_crops(images_u8, torch.float32))
+        return out["tokens"], out["scores"]
+
+    def recognize(self, images_u8):
+        """uint8 crops (numpy or tensor) → list of (text, confidence,
+        "levocr")."""
+        x = torch.as_tensor(np.asarray(images_u8)).to(self.device)
+        tokens, scores = self.run(x)
+        texts = self.dictionary.decode(tokens.cpu().numpy())
+        s = scores.cpu().numpy().astype(np.float64)
+        conf = np.exp(np.where(np.isfinite(s), s, 0.0).mean(axis=-1))
+        return [(t, float(c), "levocr") for t, c in zip(texts, conf)]

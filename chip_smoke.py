@@ -46,9 +46,14 @@ Phases, each of which fails the run (non-zero exit) if it fails:
    S = 1, 8, 16, 17, 63, 64, 65, 257, 272, 273, 320, 321, 700, 768 (both
    sides of its 64-row tiles and of its 16-row short last chunk) with
    H = 1, 3, 12, and at a scale that is no power of two; two calls on the
-   same input must give the same bits; timed at the train step's shape
-   (B=128, S=257, H=12) and at B=16, S=768, beside the backward of
-   `scaled_dot_product_attention`;
+   same input must give the same bits, and both must lie within the
+   plain-version bounds; timed at the train step's shape (B=128, S=257,
+   H=12) and at B=16, S=768, beside the backward of
+   `scaled_dot_product_attention`; then the K4 stress (`k4_repeats`):
+   1,000 pairs at the train shape, each pair after nothing, another K4
+   shape, K1 and K5, or another shape and a synchronize, beside a side
+   stream of bf16 matmuls: no call may differ from the first in its bits,
+   and the phase must take at most 15 s;
 9. short-sequence MHA kernel (K5) on strided q/k/v views against its plain
    version at S = 17, 300, 1000, 257 (B=128) and 1024, and at S = 1, 64,
    65, 257, 513, 640, 1024 (both sides of its resident/streamed threshold)
@@ -69,7 +74,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     checkpoint equals the live state; a resume to step 6 against an
     uninterrupted 6-step run;
 12. (right after the build) the golden replay: tests/golden/{mgp_str,
-    lore,lister}.pth through the port's loader and importers into the
+    lore,lister,levocr}.pth through the port's loader and importers into the
     port's models in f32 on the card, against the committed outputs at
     the golden tolerances, with no launch;
 13. (after the f32 models) reference checkpoints at full width: a
@@ -83,20 +88,31 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     importers must leave no tensor unused, `MGPSTRInference` with the
     mini BPE and WordPiece codecs runs `recognize()` on 256 crops (12 K1
     + 2 K2 a forward, no padded id), and the imported LORE runs `infer`
-    at B=8 x 768² (16 K3) and is checked against the CPU;
+    at B=8 x 768² (16 K3) and is checked against the CPU; a full-width
+    reference-layout LevOCR state dict (`vision.*`, `conv4_*`/`bn4_*`,
+    `levt.encoder.*`, `levt.decoder.*` with its tied embedding) goes the
+    same way into `LevOCR` (an untied copy must be refused) and runs
+    `recognize()` on 64 crops with no launch;
 14. LISTER, the fourth path: `LISTERConfig()` (FocalNet-B) in bf16 with
     seeded weights, `LISTERInference` crops/s at B=256 and B=1 latency,
     logits against f32 on the CPU with iters 0 and 2, a profile; LISTER
-    has no Pallas kernel, so it must launch none.
+    has no Pallas kernel, so it must launch none;
+15. LevOCR, the fifth path: `LevOCRConfig()` (ABINet vision with
+    ResNet45 to 512 channels; LevT d 512, 6 + 6 layers, 3 rounds) in bf16
+    on f32 crops with seeded weights, `LevOCRInference` crops/s at B=256
+    and B=1 latency, a profile; on 16 crops the bf16 vision logits against
+    f32 on the CPU, and the f32 model on the card (TF32 off) against the
+    CPU: vision logits and final tokens (a crop that differs is printed
+    with its smallest decision margin); no port kernel may launch.
 
 Launch counts are zeroed just before each main path and read just after:
 every recognizer forward must launch the attention kernel 12 times and the
 vocab kernel twice, every LORE forward the deformable conv kernel 16
 times and nothing else, every train step the attention kernel and its
 backward kernel 12 times each and nothing else, and the f32 models, the
-golden replay and LISTER nothing at all. Every time printed is this card's
-own, taken with CUDA events or, end to end, with the host clock after a
-synchronize.
+golden replay, LISTER and LevOCR nothing at all. Every time printed is
+this card's own, taken with CUDA events or, end to end, with the host
+clock after a synchronize.
 The second-to-last line is one JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.
 """
@@ -127,18 +143,22 @@ from advancedliteratemachinery_tpu_torch.engine.batches import (
 from advancedliteratemachinery_tpu_torch.engine.fit import (
     FitConfig, fit, restore_train_state)
 from advancedliteratemachinery_tpu_torch.engine.checkpoint import (
-    dcn_offset_perm, import_dla, import_lister, import_lore_processor,
-    import_mgp_str, load_torch_state_dict)
+    dcn_offset_perm, import_dla, import_levocr, import_levt, import_lister,
+    import_lore_processor, import_mgp_str, load_torch_state_dict)
 from advancedliteratemachinery_tpu_torch.engine.infer import (
-    LISTERInference, MGPSTRInference)
+    LevOCRInference, LISTERInference, MGPSTRInference)
 from advancedliteratemachinery_tpu_torch.engine.train import (
     TrainState, make_mgp_str_train_step, make_optimizer, mgp_str_loss)
 from advancedliteratemachinery_tpu_torch.models import layers
+from advancedliteratemachinery_tpu_torch.models.abinet import (
+    ABINetVisionConfig)
 from advancedliteratemachinery_tpu_torch.models.db import DBConfig, DBDetector
 from advancedliteratemachinery_tpu_torch.models.dla import (
     DLAConfig, DLASeg, DLASegConfig)
 from advancedliteratemachinery_tpu_torch.models.focalnet import (
     FocalNetConfig)
+from advancedliteratemachinery_tpu_torch.models.levocr import (
+    PAD, UNK, LevOCR, LevOCRConfig)
 from advancedliteratemachinery_tpu_torch.models.lister import (
     LISTER, LISTERConfig)
 from advancedliteratemachinery_tpu_torch.models.lore import LORE, LoreConfig
@@ -203,12 +223,38 @@ TRAIN_GRAD_RTOL = 2e-2
 # bf16 through FocalNet-B's 15 blocks and the 36-step walk; the same
 # comparison in bf16 on the CPU gave 6.7e-3 (iters 0) and 9.7e-3 (iters 2)
 LISTER_RTOL = 3e-2
+# LevOCR's vision logits in bf16 on the card against f32 on the CPU,
+# relative RMS: bf16 activations through ResNet45's 45 convs, 3 transformer
+# layers and the position attention, as the recognizer's encoder
+# (ENCODER_RTOL) and LORE's DLA (LORE_RTOL)
+LEVOCR_BF16_RTOL = 5e-2
+# LevOCR's three heads in bf16 on the card against f32 on the CPU, relative
+# RMS, at most this multiple of the same model's error in bf16 on the CPU
+# on the same inputs: the fused text features are nearly one vector on
+# every token (the mean's norm is ~99 % of a token's), so a head with few
+# classes reads small differences and its relative error is bf16's own,
+# not a fixed share (the deletion head's is several times the others')
+LEVOCR_BF16_HEADS_RATIO = 1.5
+# the same in f32 on the card (TF32 off for matmuls and cuDNN convs): the
+# same arithmetic summed in other orders
+LEVOCR_F32_RTOL = 1e-4
+# final tokens of the f32 card run equal to the CPU's on at least this many
+# of the 16 crops (a decision that sits on a near-tie may flip); the scores
+# of the crops whose tokens are equal within LEVOCR_F32_RTOL of their RMS
+LEVOCR_F32_MIN_EQUAL = 15
+# readable check weights (`readable_levocr`): the share of vision positions
+# that predict the null class, and of the first round's tokens deleted
+LEVOCR_NULL_SHARE = 0.1
+LEVOCR_DEL_SHARE = 0.3
+# K4's bounded stress phase: pairs of calls at the train shape
+K4_STRESS_PAIRS = 1000
 
-# The golden artifacts' configurations (tests/golden/{mgp_str,lore,lister}
-# .pth), copied from the JAX tests that build them:
+# The golden artifacts' configurations (tests/golden/{mgp_str,lore,lister,
+# levocr}.pth), copied from the JAX tests that build them:
 # tests/test_checkpoint_import.py:20 (D, HEADS, DEPTH, T = 32, 2, 2, 9),
-# tests/test_dla_import.py:24-27 and tests/golden_common.py:82-86; and their
-# tolerances, tests/golden_common.py:391
+# tests/test_dla_import.py:24-27, tests/golden_common.py:82-86 and
+# :106-109 with tests/test_levocr_import.py:19-22 (DV, DL, MAXLEN = 64, 32,
+# 10); and their tolerances, tests/golden_common.py:391
 GOLDEN_MGP_STR = MGPSTRConfig(batch_max_length=7, bpe_vocab_size=64,
                               wp_vocab_size=64,
                               vit=ViTConfig(embed_dim=32, depth=2,
@@ -220,7 +266,12 @@ GOLDEN_LISTER = LISTERConfig(
     max_ch=6, iters=1, nhead=2, window_size=5,
     focalnet=FocalNetConfig(embed_dim=8, depths=(1, 1, 1, 1),
                             layerscale_value=1e-2))
-GOLDEN_TOL = {"mgp_str": 2e-4, "lore": 2e-3, "lister": 1e-5}
+GOLDEN_LEVOCR = LevOCRConfig(
+    max_len=10, d_model=32, heads=2, ffn=64, layers=1,
+    vision=ABINetVisionConfig(max_length=6, num_classes=37, d_model=64,
+                              ffn=256))
+GOLDEN_TOL = {"mgp_str": 2e-4, "lore": 2e-3, "lister": 1e-5,
+              "levocr": 3e-3}
 
 ATTN_SRC = "advancedliteratemachinery_tpu_torch/csrc/fused_qkv_attention.cu"
 DECODE_SRC = "advancedliteratemachinery_tpu_torch/csrc/vocab_greedy_decode.cu"
@@ -330,6 +381,20 @@ def rel_errors(got, want):
     return err.pow(2).mean().sqrt().item() / rms, err.max().item() / rms
 
 
+def k4_diff(a, b, H):
+    """Where two K4 outputs [B, S, 3 * H * 64] differ: how many elements,
+    the largest difference, and which parts (0 dq, 1 dk, 2 dv), batches,
+    rows and heads."""
+    B, S, _ = a.shape
+    d = (a.float() - b.float()).abs().view(B, S, 3, H, 64)
+    nz = d.nonzero()
+    return {"n": len(nz), "max": d.max().item(),
+            "parts": sorted(set(nz[:, 2].tolist())),
+            "batches": sorted(set(nz[:, 0].tolist()))[:8],
+            "rows": sorted(set(nz[:, 1].tolist()))[:32],
+            "heads": sorted(set(nz[:, 3].tolist()))[:12]}
+
+
 def check_attention_bwd(B, S, H, gen, time_it=False, scale=None):
     """K4 against its plain version in f32 on the same bf16 inputs; two
     calls on the same input must give the same bits."""
@@ -346,21 +411,21 @@ def check_attention_bwd(B, S, H, gen, time_it=False, scale=None):
            "max_abs_err": (got.float() - want).abs().max().item(),
            "tol": [K4_RMS_TOL, K4_MAX_TOL],
            "repeat_equal": torch.equal(got, again)}
+    again_ok = True
     for i, name in enumerate(("dq", "dk", "dv")):
         sl = slice(i * D, (i + 1) * D)
         rec[f"{name}_rel_rms_err"], rec[f"{name}_max_err_over_rms"] = (
             rel_errors(got[..., sl], want[..., sl]))
         rec[f"{name}_vs_f32"] = rel_errors(got[..., sl], want32[..., sl])
-    if not rec["repeat_equal"]:            # where the two calls differ
-        d = (got.float() - again.float()).abs().view(B, S, 3, H, 64)
-        nz = d.nonzero()
-        rec["repeat_diff"] = {
-            "n": len(nz), "max": d.max().item(),
-            "parts": sorted(set(nz[:, 2].tolist())),    # 0 dq, 1 dk, 2 dv
-            "batches": sorted(set(nz[:, 0].tolist()))[:8],
-            "rows": sorted(set(nz[:, 1].tolist()))[:32],
-            "heads": sorted(set(nz[:, 3].tolist()))[:12]}
-    require(got.shape == qkv.shape and rec["repeat_equal"] and all(
+        # the second call is held to the same bounds, so that a repeat
+        # mismatch says which call left the plain version
+        rms, top = rel_errors(again[..., sl], want[..., sl])
+        rec[f"{name}_again_errs"] = [rms, top]
+        again_ok = again_ok and rms <= K4_RMS_TOL and top <= K4_MAX_TOL
+    if not rec["repeat_equal"]:
+        rec["repeat_diff"] = k4_diff(got, again, H)
+    require(got.shape == qkv.shape and rec["repeat_equal"] and again_ok
+            and all(
         rec[f"{n}_rel_rms_err"] <= K4_RMS_TOL
         and rec[f"{n}_max_err_over_rms"] <= K4_MAX_TOL
         and rec[f"{n}_vs_f32"][0] <= K4_RMS_TOL
@@ -426,6 +491,62 @@ def check_mha(B, S, H, gen, time_it=False, layout="qkv"):
             4 * B * S * H * 64 * 2, 4 * B * H * S * S * 64)
     emit(rec)
     return rec
+
+
+def k4_stress(gen, pairs):
+    """K4's repeatability under load: `pairs` pairs of calls at the train
+    shape (B=128, S=257, H=12) on fixed inputs, each call's bits against a
+    first reference call's. Before each pair, in turn: nothing, a K4 call
+    at another shape (the scaled-q path among them), K1 and K5, or another
+    K4 shape and a synchronize; a side stream keeps bf16 matmuls running
+    beside the calls. The flags stay on the card and are read once every
+    10 pairs; the first differing call is described by `k4_diff`. Also
+    driven by `k4_repeats.py`."""
+    t0 = time.perf_counter()
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    big = (randn(128, 257, 3 * 768), randn(128, 257, 768))
+    ref = fused_qkv_attention_bwd(*big, 12)
+    others = [((randn(B, S, 3 * H * 64), randn(B, S, H * 64)), H, scale)
+              for B, S, H, scale in ((1, 768, 2, 0.3), (2, 257, 3, 0.1),
+                                     (3, 63, 1, None), (1, 768, 12, None))]
+    k1_in = randn(256, 257, 3 * 768)
+    side, a = torch.cuda.Stream(), randn(8192, 8192)
+    a.record_stream(side)
+    bad, first, group = 0, None, 10
+    for g0 in range(0, pairs, group):
+        with torch.cuda.stream(side):
+            for _ in range(4):
+                torch.mm(a, a)
+        outs = []
+        for i in range(g0, min(g0 + group, pairs)):
+            kind = i % 4
+            if kind in (1, 3):
+                (qkv, dout), H, scale = others[i // 4 % len(others)]
+                fused_qkv_attention_bwd(qkv, dout, H, scale)
+                if kind == 3:
+                    torch.cuda.synchronize()
+            elif kind == 2:
+                fused_qkv_attention(k1_in, 12, safe=bool(i % 8 == 2))
+                q, k, v = k1_in[:128].view(128, 257, 3, 12, 64).unbind(2)
+                mha_short_seq(q, k, v)
+            outs += [fused_qkv_attention_bwd(*big, 12) for _ in range(2)]
+        flags = torch.stack([(o != ref).any() for o in outs]).cpu()
+        bad += int(flags.sum())
+        if first is None and flags.any():
+            at = int(flags.nonzero()[0, 0])
+            first = {"pair": g0 + at // 2, **k4_diff(outs[at], ref, 12)}
+    side.synchronize()
+    return {"phase": "k4_repeats", "pairs": pairs, "calls": 2 * pairs,
+            "calls_differing": bad, "first_diff": first,
+            "seconds": time.perf_counter() - t0}
+
+
+def k4_repeats_phase(gen):
+    rec = k4_stress(gen, K4_STRESS_PAIRS)
+    emit(rec)
+    require(rec["calls_differing"] == 0 and rec["seconds"] <= 15.0,
+            f"K4 repeat stress: {rec}")
 
 
 def check_decode(M, V, true_v, gen, time_it=True, extra_pairs=()):
@@ -911,7 +1032,7 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def golden_replay():
-    """tests/golden/{mgp_str,lore,lister}.pth through the port's
+    """tests/golden/{mgp_str,lore,lister,levocr}.pth through the port's
     `load_torch_state_dict` and importers into the port's models in f32 on
     the card (which no kernel takes), against the committed outputs of the
     reference's math at the golden tolerances (rtol = atol)."""
@@ -942,6 +1063,14 @@ def golden_replay():
         got = model(torch.from_numpy(data["in_image"]).cuda(),
                     torch.from_numpy(data["in_mask"]).cuda())
         outs["lister"] = {"logits": (got[-1]["logits"], data["out_logits"])}
+        sd, data = load("levocr")
+        model = LevOCR(GOLDEN_LEVOCR, policy=FP32_POLICY)
+        import_levocr(sd, model)
+        got = model(*(torch.from_numpy(data[f"in_{k}"]).cuda()
+                      for k in ("image", "noised", "masked")))
+        outs["levocr"] = {k: (got[k], data[f"out_{k}"]) for k in (
+            "vision_logits", "mask_ins_logits", "word_ins_logits",
+            "word_del_logits")}
         return outs
 
     outs, counts = counted(run)
@@ -1007,6 +1136,109 @@ def reference_mgp_str_state(cfg, gen):
         sd[pre + "feat.weight"] = rnd(D, Dg, 1, 1, std=Dg ** -0.5)
         norm(pre + "norm")
         lin(f"{head}_head", vocab[head], D)
+    return sd
+
+
+def reference_levocr_state(cfg, gen):
+    """A reference-layout LevOCR state dict (OCR/LevOCR models.py:145
+    LevOCRModel) for `cfg`, written from the reference's module names
+    independently of the importers: `vision.` BaseVision (resnet45, the
+    ResTranformer's nn.TransformerEncoderLayers, PositionAttention with its
+    conv biases), `conv4_*`/`bn4_*`, `levt.encoder.` (BertEmbeddings with a
+    64-row position table and its `position_ids`, fairseq layers) and
+    `levt.decoder.` (embed_tokens and output_projection one tensor, a 64-row
+    text position table, `version`); BatchNorms with running statistics and
+    counters. Values drawn from `gen`."""
+    sd = {}
+    v, d = cfg.vision, cfg.d_model
+    D, P = v.d_model, 64
+
+    def rnd(*shape, std=0.02):
+        return torch.randn(*shape, generator=gen) * std
+
+    def conv(name, o, i, k, bias=False):
+        sd[f"{name}.weight"] = rnd(o, i, k, k, std=(i * k * k) ** -0.5)
+        if bias:
+            sd[f"{name}.bias"] = rnd(o, std=0.1)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = 1.0 + rnd(c, std=0.1)
+        sd[f"{name}.bias"] = rnd(c, std=0.1)
+        sd[f"{name}.running_mean"] = rnd(c, std=0.1)
+        sd[f"{name}.running_var"] = 0.5 + torch.rand(c, generator=gen)
+        sd[f"{name}.num_batches_tracked"] = torch.tensor(1000)
+
+    def lin(name, o, i, bias=True):
+        sd[f"{name}.weight"] = rnd(o, i, std=i ** -0.5)
+        if bias:
+            sd[f"{name}.bias"] = rnd(o)
+
+    def norm(name, c):
+        sd[f"{name}.weight"] = 1.0 + rnd(c, std=0.1)
+        sd[f"{name}.bias"] = rnd(c)
+
+    w = D // 16
+    conv("vision.backbone.resnet.conv1", w, 3, 3)
+    bn("vision.backbone.resnet.bn1", w)
+    ci = w
+    for s, (mult, blocks, stride) in enumerate(
+            ((1, 3, 2), (2, 4, 1), (4, 6, 2), (8, 6, 1), (16, 3, 1))):
+        for b in range(blocks):
+            pre, planes = f"vision.backbone.resnet.layer{s + 1}.{b}.", mult * w
+            conv(pre + "conv1", planes, ci, 1)
+            bn(pre + "bn1", planes)
+            conv(pre + "conv2", planes, planes, 3)
+            bn(pre + "bn2", planes)
+            if b == 0 and (stride != 1 or ci != planes):
+                conv(pre + "downsample.0", planes, ci, 1)
+                bn(pre + "downsample.1", planes)
+            ci = planes
+    for i in range(v.backbone_layers):
+        pre = f"vision.backbone.transformer.layers.{i}."
+        sd[pre + "self_attn.in_proj_weight"] = rnd(3 * D, D, std=D ** -0.5)
+        sd[pre + "self_attn.in_proj_bias"] = rnd(3 * D)
+        lin(pre + "self_attn.out_proj", D, D)
+        lin(pre + "linear1", v.ffn, D)
+        lin(pre + "linear2", D, v.ffn)
+        norm(pre + "norm1", D)
+        norm(pre + "norm2", D)
+    for j in range(4):
+        conv(f"vision.attention.k_encoder.{j}.0", 64, D if j == 0 else 64, 3,
+             bias=True)
+        bn(f"vision.attention.k_encoder.{j}.1", 64)
+        conv(f"vision.attention.k_decoder.{j}.1", D if j == 3 else 64, 64, 3,
+             bias=True)
+        bn(f"vision.attention.k_decoder.{j}.2", D if j == 3 else 64)
+    lin("vision.attention.project", D, D)
+    lin("vision.cls", v.num_classes, D)
+    for n in ("1", "2"):
+        conv(f"conv4_{n}", D, D, 2)
+        bn(f"bn4_{n}", D)
+    e = "levt.encoder.text_embeddings."
+    sd[e + "word_embeddings.weight"] = rnd(cfg.vocab_size, d)
+    sd[e + "position_embeddings.weight"] = rnd(P, d)
+    sd[e + "token_type_embeddings.weight"] = rnd(2, d)
+    sd[e + "position_ids"] = torch.arange(P)[None]
+    norm(e + "LayerNorm", d)
+    for i in range(cfg.layers):
+        for part in ("encoder", "decoder"):
+            pre = f"levt.{part}.layers.{i}."
+            for n in ("q", "k", "v", "out"):
+                lin(f"{pre}self_attn.{n}_proj", d, d)
+            norm(pre + "self_attn_layer_norm", d)
+            lin(pre + "fc1", cfg.ffn, d)
+            lin(pre + "fc2", d, cfg.ffn)
+            norm(pre + "final_layer_norm", d)
+    tied = rnd(cfg.vocab_size, d, std=d ** -0.5)
+    sd["levt.decoder.embed_tokens.weight"] = tied
+    sd["levt.decoder.output_projection.weight"] = tied
+    sd["levt.decoder.embed_mask_ins.weight"] = rnd(256, 2 * d)
+    sd["levt.decoder.embed_word_del.weight"] = rnd(2, d)
+    sd["levt.decoder.token_type_embeddings.weight"] = rnd(2, d)
+    lin("levt.decoder.img_embed_dim", d, D, bias=False)
+    sd["levt.decoder.text_pos_emb"] = rnd(1, P, d)
+    sd["levt.decoder.img_pos_emb"] = rnd(1, 96, d)
+    sd["levt.decoder.version"] = torch.tensor([3.0])
     return sd
 
 
@@ -1186,6 +1418,36 @@ def reference_checkpoints():
                          "file_mb": (os.path.getsize(dla_path)
                                      + os.path.getsize(proc_path)) / 1e6}
         del sd, dla_loaded, proc_loaded
+        lev_cfg = LevOCRConfig()
+        lev_sd = reference_levocr_state(lev_cfg,
+                                        torch.Generator().manual_seed(16))
+        lev_path = os.path.join(tmp, "levocr.pth")
+        torch.save({"model": {f"module.{k}": v for k, v in lev_sd.items()}},
+                   lev_path)
+        rec["levocr_cached_share_after_evict"] = evict_from_page_cache(
+            lev_path)
+        t0 = time.perf_counter()
+        sd = load_torch_state_dict(lev_path)
+        t1 = time.perf_counter()
+        levocr = LevOCR(lev_cfg, seed=5)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        import_levocr(sd, levocr)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rec["levocr_s"] = {"load_after_evict": t1 - t0,
+                           "load_cached": timed_load(lev_path),
+                           "build": t2 - t1, "import": t3 - t2,
+                           "file_mb": os.path.getsize(lev_path) / 1e6}
+        untied = dict(sd)
+        untied["levt.decoder.embed_tokens.weight"] = sd[
+            "levt.decoder.embed_tokens.weight"] + 1.0
+        try:                 # refused before anything loads into `levocr`
+            import_levt(untied, levocr)
+            rec["levocr_untied_refused"] = False
+        except ValueError as e:
+            rec["levocr_untied_refused"] = "embed_tokens" in str(e)
+        del sd, untied
     rec["unused_key_warnings"] = [str(w.message) for w in caught]
     want = source.state_dict()
     rec["lore_round_trip_equal"] = all(
@@ -1225,9 +1487,25 @@ def reference_checkpoints():
     rec["lore_launches"] = lore_counts
     rec["lore_finite"] = all(bool(torch.isfinite(v).all())
                              for v in res.values())
+    del lore, res
+    torch.cuda.empty_cache()
+
+    lev_want = {"decoder.word_emb_out.weight":
+                lev_sd["levt.decoder.output_projection.weight"],
+                "vision.cls.weight": lev_sd["vision.cls.weight"],
+                "img_conv2.bn.running_var": lev_sd["bn4_2.running_var"]}
+    got = levocr.state_dict()
+    rec["levocr_tensors_as_written"] = all(
+        torch.equal(got[k].cpu(), v) for k, v in lev_want.items())
+    lev_engine = LevOCRInference(levocr)
+    del levocr, lev_sd
+    lev_texts, lev_counts = counted(lambda: lev_engine.recognize(
+        images[:64]))
+    rec["levocr_launches"] = lev_counts
+    rec["levocr_recognize_first"] = lev_texts[:4]
     rec["seconds"] = time.perf_counter() - t_phase
     emit(rec)
-    del lore, res
+    del lev_engine
     torch.cuda.empty_cache()
     require(not rec["unused_key_warnings"],
             f"importers left checkpoint tensors unused: {rec}")
@@ -1242,6 +1520,12 @@ def reference_checkpoints():
         f"recognize() output malformed: {texts[:4]}")
     require(lore_counts == {"deform_conv": 16} and rec["lore_finite"],
             f"LORE.infer: launches {lore_counts}, expected 16 deform_conv")
+    require(rec["levocr_untied_refused"] and rec["levocr_tensors_as_written"],
+            f"imported LevOCR malformed: {rec}")
+    require(lev_counts == {} and len(lev_texts) == 64 and all(
+        0.0 <= c <= 1.0 and h == "levocr" for _, c, h in lev_texts),
+        f"imported LevOCR: launches {lev_counts}, or recognize() "
+        f"malformed: {lev_texts[:4]}")
 
 
 def lister_phase():
@@ -1316,6 +1600,244 @@ def lister_phase():
     require(len(texts) == 8 and all(0.0 <= c <= 1.0 and h == "lister"
                                     for _, c, h in texts),
             f"LISTER recognize() output malformed: {texts}")
+
+
+def readable_levocr(model, x):
+    """Make seeded random LevOCR weights read `x` so that refine edits.
+    As drawn, every crop's vision branch predicts one class at all 26
+    positions (a near-uniform attention map), which fills the 28-slot
+    buffer, so nothing is inserted, and p(del) stays below 0.5, so nothing
+    is deleted: the rounds would leave the tokens as they came. As the CPU
+    tests' `readable_vision`, sharpen the position queries (x16) and the
+    classifier (x4). Then, from a run on `x`, raise the null class's bias
+    so that it wins on LEVOCR_NULL_SHARE of the positions (the predictions
+    end at varying places), and set the deletion head's second row to the
+    first plus their difference with its component along the mean fused
+    text feature u removed (the fused features share u, which kept the
+    difference's sign on every token), plus the multiple of u that makes
+    p(del) pass 0.5 on about LEVOCR_DEL_SHARE of the first round's live
+    tokens."""
+    vis, dec = model.vision, model.decoder
+    with torch.no_grad():
+        vis.attention.project.weight.mul_(16)
+        vis.cls.weight.mul_(4)
+        logits = vis(x)["logits"]
+        margin = logits[..., 1:].amax(-1) - logits[..., 0]
+        vis.cls.bias[0] += torch.quantile(margin.flatten(),
+                                          LEVOCR_NULL_SHARE)
+        out, img = model.encode_image(x)
+        tokens = model.vision_tokens(out["logits"])
+        L = tokens.shape[1]
+        feats = dec.fuse(model.text_encoder(tokens), img)[:, :L].float()
+        live = feats[tokens != PAD]
+        e = dec.word_del_emb.weight
+        u = live.mean(0)
+        d = (e[1] - e[0]).float()
+        d -= (d @ u) / (u @ u) * u
+        lift = -torch.quantile(live @ d, 1 - LEVOCR_DEL_SHARE) / (u @ u)
+        e[1] = e[0] + (d + lift * u).to(e.dtype)
+
+
+def levocr_walk(model, x):
+    """A refine of `model` on x, round by round: the smallest decision
+    margin of each crop (over every round, the gap between the top two
+    vision logits, |p(del) - threshold| at the live tokens, the gap between
+    the top two insertion counts at each slot and between the top two
+    words at the placeholders), and the tokens each round deleted,
+    inserted (placeholders) and filled, summed over the crops."""
+    def gap(logits):
+        top = logits.float().topk(2, dim=-1).values
+        return top[..., 0] - top[..., 1]
+
+    def live(t):
+        return int((t != PAD).sum())
+
+    big = torch.finfo(torch.float32).max
+    edits = []
+    with torch.inference_mode():
+        out, img = model.encode_image(x)
+        margin = gap(out["logits"]).amin(1)
+        tokens = model.vision_tokens(out["logits"])
+        scores = torch.zeros(tokens.shape, device=tokens.device)
+        for _ in range(model.config.max_iter + 1):
+            n0 = live(tokens)
+            alive = tokens != PAD
+            tokens, scores, p_del = model.delete(tokens, scores, img)
+            margin = torch.minimum(margin, torch.where(
+                alive, (p_del - model.config.del_threshold).abs(),
+                big).amin(1))
+            n1 = live(tokens)
+            slots = (tokens != PAD)[:, 1:]
+            tokens, scores, ins = model.insert(tokens, scores, img)
+            margin = torch.minimum(margin, torch.where(
+                slots, gap(ins), big).amin(1))
+            unk = tokens == UNK
+            tokens, scores, logp = model.fill(tokens, scores, img)
+            margin = torch.minimum(margin, torch.where(
+                unk, gap(logp), big).amin(1))
+            edits.append({"deleted": n0 - n1,
+                          "inserted": live(tokens) - n1,
+                          "filled": int((unk & (tokens != UNK)).sum())})
+        return margin.cpu(), edits
+
+
+def levocr_phase():
+    """LevOCR, the fifth path: the JAX default LevOCRConfig() (ABINet
+    vision: ResNet45 to 512 channels, 3 layers, 26 queries, 37 classes;
+    LevT d 512, 8 heads, ffn 2048, 6 + 6 layers, max_len 28, max_iter 2:
+    3 rounds), seeded weights, `LevOCRInference` in bf16 on 32x128 crops:
+    crops/s at B=256 (best of 3 repetitions of 10 batches), p50/p99
+    latency at B=1 over 60 synchronised calls, a profile of one batch. On
+    16 crops, with the weights made readable (`readable_levocr`: the
+    rounds must delete, insert and fill, on crops that read differently):
+    the bf16 vision logits and heads against the same weights in f32 on
+    the CPU (the heads beside the same in bf16 on the CPU), and the f32
+    model on the card (TF32 off) against the CPU: vision logits, final
+    tokens and their scores, with the smallest decision margin of any crop
+    whose tokens differ. LevOCR has no Pallas kernel, so nothing may launch
+    a port kernel."""
+    t_phase = time.perf_counter()
+    cfg = LevOCRConfig()
+    v = cfg.vision
+    require(cfg.d_model == 512 and cfg.heads == 8 and cfg.ffn == 2048
+            and cfg.layers == 6 and cfg.max_len == 28 and cfg.max_iter == 2
+            and v.d_model == 512 and v.backbone_layers == 3
+            and v.max_length == 26 and v.num_classes == 37,
+            "not the default LevOCRConfig")
+    B, iters, n_check = 256, 10, 16
+    images = np.random.default_rng(17).integers(0, 256, (B, 32, 128, 3),
+                                                dtype=np.uint8)
+    dev_images = torch.from_numpy(images).cuda()
+    model = LevOCR(cfg, seed=0)
+    x = normalize_crops(torch.from_numpy(images[:n_check]), torch.float32)
+    readable_levocr(model, x.cuda())
+    engine = LevOCRInference(model)
+
+    def refine_all():
+        with torch.inference_mode():
+            return engine.model.refine(x.cuda())
+    bf16_out, counts_check = counted(refine_all)
+    cpu = LevOCR(cfg, policy=FP32_POLICY, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    card32 = LevOCR(cfg, policy=FP32_POLICY)
+    card32.load_state_dict(model.state_dict())
+    del model
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = cpu.refine(x)
+        cpu_s = time.perf_counter() - t0
+    f32_out, counts_f32 = counted(lambda: card32.refine(x.cuda()))
+    del card32
+    # the heads forward, bf16 on the card and on the CPU against f32 on the
+    # CPU, on the CPU's vision tokens (mask-ins, word-del) and final tokens
+    # (word-ins)
+    heads_in = (x, want["vision_tokens"], want["tokens"])
+
+    def bf16_heads():
+        with torch.inference_mode():
+            return engine.model(*(t.cuda() for t in heads_in))
+    heads, counts_heads = counted(bf16_heads)
+    cpu16 = LevOCR(cfg, device="cpu")
+    cpu16.load_state_dict(cpu.state_dict())
+    with torch.inference_mode():
+        heads_cpu, heads_cpu16 = cpu(*heads_in), cpu16(*heads_in)
+    del cpu16
+    head_names = ("mask_ins_logits", "word_ins_logits", "word_del_logits")
+    margins, edits = levocr_walk(cpu, x)
+    tok32, tok_cpu = f32_out["tokens"].cpu(), want["tokens"]
+    differ = (tok32 != tok_cpu).any(1)
+    lengths = lambda t: (t != PAD).sum(1)
+    rec_acc = {
+        "bf16_vision_logits_rel_rms_vs_cpu_f32": rel_errors(
+            bf16_out["vision_logits"].cpu(), want["vision_logits"])[0],
+        "bf16_heads_rel_rms_vs_cpu_f32": {
+            k: rel_errors(heads[k].cpu(), heads_cpu[k])[0]
+            for k in head_names},
+        "cpu_bf16_heads_rel_rms_vs_cpu_f32": {
+            k: rel_errors(heads_cpu16[k], heads_cpu[k])[0]
+            for k in head_names},
+        "bf16_tokens_equal_to_cpu": int((bf16_out["tokens"].cpu()
+                                         == tok_cpu).all(1).sum()),
+        "f32_vision_logits_rel_rms_vs_cpu": rel_errors(
+            f32_out["vision_logits"].cpu(), want["vision_logits"])[0],
+        "f32_tokens_equal_to_cpu": int((~differ).sum()), "crops": n_check,
+        "f32_scores_rel_rms_vs_cpu": rel_errors(
+            f32_out["scores"].cpu()[~differ], want["scores"][~differ])[0],
+        "cpu_edits_by_round": edits,
+        "cpu_length_changed": int((lengths(want["tokens"]) != lengths(
+            want["vision_tokens"])).sum()),
+        "cpu_nonzero_scores": int((want["scores"] != 0).sum()),
+        "cpu_distinct_strings": len({tuple(r) for r in tok_cpu.tolist()}),
+        "cpu_f32_refine_s": cpu_s,
+        "tol": {"bf16": LEVOCR_BF16_RTOL,
+                "bf16_heads_ratio": LEVOCR_BF16_HEADS_RATIO,
+                "f32": LEVOCR_F32_RTOL,
+                "f32_min_equal": LEVOCR_F32_MIN_EQUAL}}
+    if differ.any():
+        rec_acc["f32_differing_crops"] = [
+            {"crop": int(i), "card": tok32[i].tolist(),
+             "cpu": tok_cpu[i].tolist(),
+             "smallest_margin": float(margins[i])}
+            for i in differ.nonzero()[:, 0]]
+    del cpu
+    engine.run(dev_images)[0].cpu()                       # warm up
+
+    def loop():
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            tokens, _ = engine.run(dev_images)
+        tokens.cpu()
+        return B * iters / (time.perf_counter() - t0)
+
+    reps, counts = counted(lambda: [loop() for _ in range(3)])
+    one = dev_images[:1]
+    engine.run(one)[0].cpu()
+    lats = []
+    for _ in range(60):
+        t0 = time.perf_counter()
+        engine.run(one)[0].cpu()
+        lats.append((time.perf_counter() - t0) * 1e3)
+    texts = engine.recognize(images[:8])
+    rec = {"phase": "levocr", "config": "LevOCRConfig(): ABINet vision "
+           "(ResNet45-512, 3 layers) + LevT 6+6 layers d 512, 3 rounds",
+           "batch": B, "crops_per_s_reps": reps,
+           "crops_per_s_best": max(reps),
+           "p50_ms_b1": float(np.percentile(lats, 50)),
+           "p99_ms_b1": float(np.percentile(lats, 99)),
+           "launches": counts,
+           "launches_checks": [counts_check, counts_f32, counts_heads],
+           **rec_acc, "recognize_first": texts[:4],
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    profile_steps("levocr_profile",
+                  [lambda: engine.run(dev_images)[0].cpu()],
+                  step_ms=1e3 * B / max(reps))
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    del engine
+    torch.cuda.empty_cache()
+    require(counts == {} and all(c == {} for c in rec["launches_checks"]),
+            f"LevOCR launched a port kernel: {rec['launches_checks']}, "
+            f"{counts}")
+    # the check weights must make every kind of edit, on crops that read
+    # differently, or the comparisons below hold nothing
+    require(all(sum(r[k] for r in edits) > 0
+                for k in ("deleted", "inserted", "filled"))
+            and rec["cpu_length_changed"] > 0
+            and rec["cpu_nonzero_scores"] > 0
+            and rec["cpu_distinct_strings"] > 1,
+            f"LevOCR's check crops were not edited: {rec_acc}")
+    require(rec["bf16_vision_logits_rel_rms_vs_cpu_f32"] <= LEVOCR_BF16_RTOL
+            and all(rec["bf16_heads_rel_rms_vs_cpu_f32"][k]
+                    <= LEVOCR_BF16_HEADS_RATIO
+                    * rec["cpu_bf16_heads_rel_rms_vs_cpu_f32"][k]
+                    for k in head_names)
+            and rec["f32_vision_logits_rel_rms_vs_cpu"] <= LEVOCR_F32_RTOL
+            and rec["f32_tokens_equal_to_cpu"] >= LEVOCR_F32_MIN_EQUAL
+            and rec["f32_scores_rel_rms_vs_cpu"] <= LEVOCR_F32_RTOL,
+            f"LevOCR on the card disagrees with the CPU: {rec_acc}")
+    require(len(texts) == 8 and all(0.0 <= c <= 1.0 and h == "levocr"
+                                    for _, c, h in texts),
+            f"LevOCR recognize() output malformed: {texts}")
 
 
 class PlainAttention(torch.autograd.Function):
@@ -1643,6 +2165,7 @@ def main() -> int:
     f32_models_phase()
     reference_checkpoints()
     lister_phase()
+    levocr_phase()
 
     bwd_err = 0.0
     # both sides of the 64-row tiles and of a 16-row short last chunk, one
@@ -1658,6 +2181,8 @@ def main() -> int:
     k4 = check_attention_bwd(128, 257, 12, gen, time_it=True)
     k4_long = check_attention_bwd(16, 768, 12, gen, time_it=True)
     bwd_err = max(bwd_err, k4["max_abs_err"], k4_long["max_abs_err"])
+    torch.cuda.empty_cache()
+    k4_repeats_phase(gen)
     mha_err = 0.0
     for B, S, H in ((3, 17, 2), (2, 300, 3), (1, 1000, 2)):
         mha_err = max(mha_err, check_mha(B, S, H, gen)["max_abs_err"])

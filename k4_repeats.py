@@ -1,53 +1,261 @@
 """Repeatability of K4, the fused-qkv attention backward, on the card.
 
 K4 adds no float atomically, so two calls on the same inputs must give the
-same bits. This script calls it in pairs at the MGP-STR-base train shape
-(B=128, S=257, H=12) on fixed inputs and counts the calls whose bits
-differ from a first reference call, with nothing, other K4 shapes (the
-scaled-q path among them), or K1 and K5 launched before each pair. With
-`--after-phases` it first runs `chip_smoke.py`'s f32-model,
-reference-checkpoint and LISTER phases, to leave the card as the smoke
-leaves it before its K4 checks. One JSON line a case; exits 1 when any
-call differs. Needs one H100:
+same bits. Needs one H100. Modes:
 
-    python3 k4_repeats.py [--pairs 400] [--after-phases]
+    python3 k4_repeats.py [--pairs 1000] [--after-phases]
+        `chip_smoke.py`'s K4 stress (`k4_stress`): K4 in pairs at the
+        MGP-STR-base train shape (B=128, S=257, H=12) on fixed inputs,
+        each call's bits against a first call's, with nothing, other K4
+        shapes (the scaled-q path among them), K1 and K5, or another shape
+        and a synchronize before each pair, beside a side stream of
+        matmuls. With `--after-phases` it first runs `chip_smoke.py`'s
+        f32-model, reference-checkpoint and LISTER phases. One JSON line.
+    python3 k4_repeats.py --fresh 12 --pairs 100
+        the same in 12 fresh processes, one after another (the first calls
+        of a process on a cold card), and their sum.
+    python3 k4_repeats.py --sass [--out k4.sass]
+        disassembles the built library (`cuobjdump -sass`) and lists every
+        instruction that writes a register holding an A fragment of an
+        `HGMMA` (wgmma with A in registers) before a `WARPGROUP.DEPBAR`
+        that covers that HGMMA's commit group, along every control path.
+    python3 k4_repeats.py --time [--root DIR]
+        K4's time at the train shape (CUDA events, 5 x 20 calls, the
+        best); with `--root` the package is imported from DIR (a copy of
+        another tree), so two trees compare in one call.
+
+Every mode prints the card's name and power limit first; the counting
+modes exit 1 when any call differs, `--sass` when any hazard is found.
 """
 
 import argparse
 import json
+import os
+import re
 import subprocess
 import sys
 import time
 
-import torch
 
-from advancedliteratemachinery_tpu_torch.ops import _kernels
-from advancedliteratemachinery_tpu_torch.ops.attention import (
-    fused_qkv_attention, fused_qkv_attention_bwd, mha_short_seq)
+# ---------------- SASS: A-fragment registers of HGMMA in flight ----------
+
+_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?);")
+_REG = re.compile(r"^R(\d+)$")
+_NO_DEST = ("ST", "RED", "BAR", "BRA", "EXIT", "RET", "WARPGROUP", "SYNCS",
+            "UTMA", "NOP", "CALL", "BSSY", "BSYNC", "WARPSYNC", "MEMBAR",
+            "FENCE", "DEPBAR", "YIELD", "ERRBAR", "CCTL", "UBLKCP")
 
 
-def where(a, b, H):
-    """Which of dq, dk, dv differ, and in which batches, rows and heads."""
-    B, S, _ = a.shape
-    D = H * 64
-    d = (a.float() - b.float()).abs()
-    out = {}
-    for i, name in enumerate(("dq", "dk", "dv")):
-        x = d[..., i * D:(i + 1) * D].reshape(B, S, H, 64)
-        nz = x.nonzero()
-        if len(nz):
-            out[name] = {"n": len(nz), "max": x.max().item(),
-                         "batches": sorted(set(nz[:, 0].tolist()))[:8],
-                         "rows": sorted(set(nz[:, 1].tolist()))[:32],
-                         "heads": sorted(set(nz[:, 2].tolist()))[:12]}
-    return out
+def _parse(line):
+    m = _INSN.search(line)
+    if not m:
+        return None
+    text = m.group(2).strip()
+    pred = None
+    if text.startswith("@"):
+        pred, text = text.split(None, 1)
+    op, _, rest = text.partition(" ")
+    ops = [o.strip() for o in rest.split(",")] if rest else []
+    return {"addr": int(m.group(1), 16), "pred": pred, "op": op,
+            "ops": ops, "text": m.group(2).strip()}
+
+
+def _width(op):
+    if op.startswith("HGMMA"):
+        return int(re.search(r"64x(\d+)x", op).group(1)) // 2
+    if ".128" in op or ".M88.4" in op or ".MT88.4" in op:
+        return 4
+    if ".64" in op or ".WIDE" in op or ".M88.2" in op or ".MT88.2" in op:
+        return 2
+    return 1
+
+
+def _dest(ins):
+    """The general registers an instruction writes (first operand)."""
+    op, ops = ins["op"], ins["ops"]
+    if op.startswith(_NO_DEST) or not ops:
+        return set()
+    first = ops[0]
+    if op.startswith("SHFL") and len(ops) > 1:
+        first = ops[1]
+    m = _REG.match(first)
+    if not m:
+        return set()
+    base = int(m.group(1))
+    return set(range(base, base + _width(op)))
+
+
+def sass_hazards(sass: str):
+    """Per function: every RS HGMMA and, along each control path from it,
+    the instructions that write one of its four A registers before a
+    `WARPGROUP.DEPBAR.LE gsb0, N` with at least N commit groups issued
+    after its own (a group is closed by the HGMMA that carries `gsb0`)."""
+    funcs, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        if cur is not None:
+            ins = _parse(line)
+            if ins:
+                cur.append(ins)
+    report = {}
+    for name, code in funcs.items():
+        at = {ins["addr"]: i for i, ins in enumerate(code)}
+        rs, found = 0, []
+        for i, ins in enumerate(code):
+            if not (ins["op"].startswith("HGMMA") and len(ins["ops"]) > 1
+                    and _REG.match(ins["ops"][1])):
+                continue
+            rs += 1
+            a0 = int(_REG.match(ins["ops"][1]).group(1))
+            regs = set(range(a0, a0 + 4))
+            closed = "gsb0" in ins["ops"]
+            # (index, newer groups, own group closed)
+            stack, seen = [(i + 1, 0, closed)], set()
+            while stack:
+                j, newer, closed = stack.pop()
+                if j >= len(code) or (j, min(newer, 4), closed) in seen:
+                    continue
+                seen.add((j, min(newer, 4), closed))
+                x = code[j]
+                if x["op"].startswith("WARPGROUP.DEPBAR"):
+                    n = int(x["ops"][-1], 16) if x["ops"] else 0
+                    if closed and newer >= n:
+                        continue               # covered on this path
+                w = _dest(x) & regs
+                if w and not x["op"].startswith("HGMMA"):
+                    found.append({"hgmma": hex(ins["addr"]),
+                                  "hgmma_text": ins["text"],
+                                  "writer": hex(x["addr"]),
+                                  "writer_text": x["text"],
+                                  "groups_after": newer})
+                    continue
+                if x["op"].startswith("HGMMA") and "gsb0" in x["ops"]:
+                    if closed:
+                        newer += 1
+                    closed = True
+                succ = []
+                if x["op"].startswith("BRA"):
+                    t = re.search(r"0x([0-9a-f]+)", x["text"])
+                    if t and int(t.group(1), 16) in at:
+                        succ.append(at[int(t.group(1), 16)])
+                    if x["pred"] is not None:
+                        succ.append(j + 1)
+                elif not (x["op"].startswith(("EXIT", "RET"))
+                          and x["pred"] is None):
+                    succ.append(j + 1)
+                stack.extend((s, newer, closed) for s in succ)
+        report[name] = {"rs_hgmma": rs, "hazards": len(found),
+                        "first": found[:6]}
+    return report
+
+
+def sass_mode(out_path):
+    from advancedliteratemachinery_tpu_torch.ops import _kernels
+
+    _kernels.build(["fused_qkv_attention_bwd"])
+    lib = _kernels._lib_path("fused_qkv_attention_bwd")
+    cuobjdump = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    if out_path:
+        os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+        with open(out_path, "w") as f:
+            f.write(sass)
+    report = sass_hazards(sass)
+    log = _kernels.BUILD_LOG.get("fused_qkv_attention_bwd", "")
+    print(json.dumps({"sass": report, "lib": lib.name, "ptxas": [
+        ln for ln in log.splitlines()
+        if "wgmma" in ln or "spill" in ln or "registers" in ln]}),
+        flush=True)
+    return 1 if any(r["hazards"] for r in report.values()) else 0
+
+
+# ---------------- the calls ----------------
+
+def pairs_mode(args):
+    import torch
+
+    from advancedliteratemachinery_tpu_torch.ops import _kernels
+
+    _kernels.build()
+    import chip_smoke
+    if args.after_phases:
+        chip_smoke.f32_models_phase()
+        chip_smoke.reference_checkpoints()
+        chip_smoke.lister_phase()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rec = chip_smoke.k4_stress(gen, args.pairs)
+    print(json.dumps(rec), flush=True)
+    return 1 if rec["calls_differing"] else 0
+
+
+def fresh_mode(args):
+    t0 = time.perf_counter()
+    calls, differing, failed = 0, 0, 0
+    for k in range(args.fresh):
+        cmd = [sys.executable, os.path.abspath(__file__), "--pairs",
+               str(args.pairs)]
+        p = subprocess.run(cmd, capture_output=True, text=True)
+        for ln in p.stdout.splitlines():
+            if ln.startswith("{"):
+                rec = json.loads(ln)
+                calls += rec["calls"]
+                differing += rec["calls_differing"]
+        failed += p.returncode not in (0, 1)
+        if p.returncode not in (0, 1):
+            print(p.stdout[-2000:], p.stderr[-2000:], flush=True)
+    print(json.dumps({"fresh_processes": args.fresh, "calls": calls,
+                      "calls_differing": differing,
+                      "processes_failed": failed,
+                      "seconds": time.perf_counter() - t0}), flush=True)
+    return 1 if differing or failed else 0
+
+
+def time_mode():
+    import torch
+
+    from advancedliteratemachinery_tpu_torch.ops.attention import (
+        fused_qkv_attention_bwd)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    qkv = torch.randn(128, 257, 3 * 768, generator=gen,
+                      device="cuda").bfloat16()
+    dout = torch.randn(128, 257, 768, generator=gen, device="cuda").bfloat16()
+    for _ in range(3):
+        fused_qkv_attention_bwd(qkv, dout, 12)
+    best = float("inf")
+    for _ in range(5):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        for _ in range(20):
+            fused_qkv_attention_bwd(qkv, dout, 12)
+        b.record()
+        torch.cuda.synchronize()
+        best = min(best, a.elapsed_time(b) / 20)
+    import advancedliteratemachinery_tpu_torch as pkg
+    print(json.dumps({"k4_ms_b128_s257": best,
+                      "package": os.path.dirname(pkg.__file__)}), flush=True)
+    return 0
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--pairs", type=int, default=400)
+    ap.add_argument("--pairs", type=int, default=1000)
     ap.add_argument("--after-phases", action="store_true")
+    ap.add_argument("--fresh", type=int, default=0)
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--out", default="")
+    ap.add_argument("--time", action="store_true")
+    ap.add_argument("--root", default="")
     args = ap.parse_args()
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
+    import torch
+
     if not torch.cuda.is_available():
         print("k4_repeats: no CUDA device", file=sys.stderr)
         return 2
@@ -56,61 +264,13 @@ def main() -> int:
                          text=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    _kernels.build()
-    if args.after_phases:
-        import chip_smoke
-        chip_smoke.f32_models_phase()
-        chip_smoke.reference_checkpoints()
-        chip_smoke.lister_phase()
-
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def inputs(B, S, H):
-        D = H * 64
-        return (torch.randn(B, S, 3 * D, generator=gen,
-                            device="cuda").bfloat16(),
-                torch.randn(B, S, D, generator=gen, device="cuda").bfloat16())
-
-    big = inputs(128, 257, 12)
-    ref = fused_qkv_attention_bwd(*big, 12)
-    others = [(inputs(1, 768, 2), 2, 0.3), (inputs(2, 257, 3), 3, 0.1),
-              (inputs(3, 63, 1), 1, None), (inputs(1, 768, 12), 12, None)]
-    k1_in = torch.randn(512, 257, 3 * 768, generator=gen,
-                        device="cuda").bfloat16()
-
-    def other_k4(i):
-        for (qkv, dout), H, scale in others:
-            fused_qkv_attention_bwd(qkv, dout, H, scale)
-
-    def k1_k5(i):
-        fused_qkv_attention(k1_in, 12, safe=bool(i % 2))
-        q, k, v = k1_in[:128].view(128, 257, 3, 12, 64).unbind(2)
-        mha_short_seq(q, k, v)
-
-    def synced(i):
-        other_k4(i)
-        torch.cuda.synchronize()
-
-    total = 0
-    for label, before in (("nothing", lambda i: None),
-                          ("other K4 shapes", other_k4),
-                          ("K1 and K5", k1_k5),
-                          ("other K4 shapes, then a sync", synced)):
-        t0 = time.perf_counter()
-        bad = []
-        for i in range(args.pairs):
-            before(i)
-            pair = (fused_qkv_attention_bwd(*big, 12),
-                    fused_qkv_attention_bwd(*big, 12))
-            for j, got in enumerate(pair):
-                if not torch.equal(got, ref):
-                    bad.append({"pair": i, "call": j,
-                                "differs": where(got, ref, 12)})
-        total += len(bad)
-        print(json.dumps({"before_each_pair": label, "pairs": args.pairs,
-                          "calls_differing": len(bad), "first": bad[:3],
-                          "seconds": time.perf_counter() - t0}), flush=True)
-    return 1 if total else 0
+    if args.sass:
+        return sass_mode(args.out)
+    if args.time:
+        return time_mode()
+    if args.fresh:
+        return fresh_mode(args)
+    return pairs_mode(args)
 
 
 if __name__ == "__main__":

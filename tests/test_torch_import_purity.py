@@ -22,6 +22,8 @@ def test_port_imports_without_jax():
     assert f"{PKG}.ops.attention" in modules
     assert f"{PKG}.engine.checkpoint" in modules
     assert f"{PKG}.codecs.subword" in modules
+    for m in ("models.abinet", "models.levocr", "ops.levenshtein"):
+        assert f"{PKG}.{m}" in modules
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in ("jax", "jaxlib", "flax", "advancedliteratemachinery_tpu",

@@ -434,7 +434,7 @@ def no_tf32():
      torch.backends.cudnn.allow_tf32) = saved
 
 
-@pytest.mark.parametrize("family", ["mgp_str", "lore", "lister"])
+@pytest.mark.parametrize("family", ["mgp_str", "lore", "lister", "levocr"])
 def test_golden_replays_on_card(gen, no_tf32, family):
     """tests/golden/{family}.pth through the port's loader and importer
     into the port's model in f32 on the card (TF32 off), against the
@@ -459,10 +459,15 @@ def test_golden_replays_on_card(gen, no_tf32, family):
             model = DLASeg(cs.GOLDEN_DLASEG, policy=FP32_POLICY)
             ck.import_dla(sd, model)
             got = model(image)
-        else:
+        elif family == "lister":
             model = LISTER(cs.GOLDEN_LISTER, policy=FP32_POLICY)
             ck.import_lister(sd, model)
             got = model(image, torch.from_numpy(data["in_mask"]).cuda())[-1]
+        else:
+            model = cs.LevOCR(cs.GOLDEN_LEVOCR, policy=FP32_POLICY)
+            ck.import_levocr(sd, model)
+            got = model(image, torch.from_numpy(data["in_noised"]).cuda(),
+                        torch.from_numpy(data["in_masked"]).cuda())
     tol = cs.GOLDEN_TOL[family]
     outs = [k[4:] for k in data.files if k.startswith("out_")]
     assert outs
@@ -530,3 +535,65 @@ def test_lister_engine_on_card_matches_cpu(gen):
     for g, w in zip(got, want):
         assert _rel(g["logits"].float().cpu(), w["logits"]) <= cs.LISTER_RTOL
     assert len(texts) == 4 and all(h == "lister" for *_, h in texts)
+
+
+def test_levocr_f32_on_card_matches_cpu(gen, no_tf32):
+    """LevOCR under FP32_POLICY on the card (TF32 off) against the same
+    weights on the CPU, at a small width (vision d 128, LevT d 128, two
+    layers, two rounds), with the weights made readable by chip_smoke's
+    `readable_levocr` (the CPU's rounds must delete, insert and fill): the
+    vision logits within chip_smoke's LEVOCR_F32_RTOL (relative RMS), the
+    final tokens equal, the scores within 1e-4, and no port kernel
+    launched."""
+    import chip_smoke as cs
+    from advancedliteratemachinery_tpu_torch.models.abinet import (
+        ABINetVisionConfig)
+    from advancedliteratemachinery_tpu_torch.models.levocr import (
+        LevOCR, LevOCRConfig)
+    from advancedliteratemachinery_tpu_torch.ops.image import normalize_crops
+
+    cfg = LevOCRConfig(d_model=128, heads=2, ffn=256, layers=2, max_iter=1,
+                       vision=ABINetVisionConfig(d_model=128, ffn=256,
+                                                 backbone_layers=1))
+    model = LevOCR(cfg, policy=FP32_POLICY, seed=3)
+    ref = LevOCR(cfg, policy=FP32_POLICY, device="cpu")
+    ref.load_state_dict(model.state_dict())
+    x = normalize_crops(torch.from_numpy(np.random.default_rng(10).integers(
+        0, 256, (6, 32, 128, 3), dtype=np.uint8)), torch.float32)
+    cs.readable_levocr(ref, x)
+    model.load_state_dict(ref.state_dict())
+    _, edits = cs.levocr_walk(ref, x)
+    assert all(sum(r[k] for r in edits) > 0
+               for k in ("deleted", "inserted", "filled")), edits
+    before = dict(_kernels.LAUNCHES)
+    with torch.inference_mode():
+        got = model.refine(x.cuda())
+        want = ref.refine(x)
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHES) == before
+    assert _rel(got["vision_logits"].cpu(), want["vision_logits"]) <= \
+        cs.LEVOCR_F32_RTOL
+    assert torch.equal(got["tokens"].cpu(), want["tokens"])
+    np.testing.assert_allclose(got["scores"].cpu().numpy(),
+                               want["scores"].numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_k4_many_pairs_repeat(gen):
+    """K4 at the train shape (B=128, S=257, H=12) called 400 times on the
+    same inputs, a call at another shape or K1 between each pair: every
+    call gives the first call's bits (K4 adds no float atomically)."""
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    qkv, dout = randn(128, 257, 3 * 768), randn(128, 257, 768)
+    other = (randn(2, 700, 3 * 3 * 64), randn(2, 700, 3 * 64))
+    ref = fused_qkv_attention_bwd(qkv, dout, 12)
+    flags = []
+    for i in range(200):
+        if i % 2:
+            fused_qkv_attention_bwd(*other, 3, 0.1)
+        else:
+            fused_qkv_attention(qkv, 12, safe=True)
+        for _ in range(2):
+            flags.append((fused_qkv_attention_bwd(qkv, dout, 12)
+                          != ref).any())
+    assert int(torch.stack(flags).sum()) == 0
