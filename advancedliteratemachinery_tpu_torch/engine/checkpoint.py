@@ -599,3 +599,143 @@ def import_levocr(sd: Dict[str, torch.Tensor], model: nn.Module
         m.bn(f"{ours}.bn", bn)
     out.update(m.finish())
     return out
+
+
+# ---------------- OmniParser: Swin, FPN, decoders ----------------
+
+
+def import_swin(sd: Dict[str, torch.Tensor],
+                model: nn.Module) -> Dict[str, torch.Tensor]:
+    """OmniParser's Swin backbone (model/backbone/swin_transformer.py, the
+    Joiner's element 0: keys under `backbone.0.`) into the port's
+    `SwinTransformer`: patch_embed.proj/.norm, layers.{s}.blocks.{b}.
+    {norm1, attn.{qkv, proj, relative_position_bias_table}, norm2,
+    mlp.fc1/fc2}, layers.{s}.downsample.{reduction, norm} and the per-stage
+    output norms norm{s} (a classification checkpoint has none: those stay
+    the identity). The relative_position_index buffer is recomputed, not
+    imported."""
+    m = _Mapper(sd, model, "import_swin", "backbone.0.")
+    p = m.p
+    m.copy("patch_embed", "patch_embed.proj")
+    m.copy("patch_norm", "patch_embed.norm")
+    cfg = model.config
+    for s, depth in enumerate(cfg.depths):
+        for b in range(depth):
+            dst, src = f"stage{s}_block{b}.", f"layers.{s}.blocks.{b}."
+            for part in ("norm1", "attn.qkv", "attn.proj", "norm2"):
+                m.copy(dst + part, src + part)
+            m.copy(dst + "mlp_fc1", src + "mlp.fc1")
+            m.copy(dst + "mlp_fc2", src + "mlp.fc2")
+            m.put(dst + "attn.relative_position_bias_table",
+                  p[src + "attn.relative_position_bias_table"])
+        if s < len(cfg.depths) - 1:
+            src = f"layers.{s}.downsample."
+            m.put(f"merge{s}.reduction.weight", p[src + "reduction.weight"])
+            m.copy(f"merge{s}.norm", src + "norm")
+        dim = cfg.stage_dims[s]
+        if f"norm{s}.weight" in p:
+            m.copy(f"out_norm{s}", f"norm{s}")
+        else:
+            m.put(f"out_norm{s}.weight", torch.ones(dim))
+            m.put(f"out_norm{s}.bias", torch.zeros(dim))
+    return m.finish()
+
+
+def _omni_decoder_layer(m: _Mapper, dst: str, src: str) -> None:
+    """One DETR pre-norm decoder layer (reference model/transformer.py:380
+    TransformerDecoderLayer): torch MultiheadAttention packs q|k|v rows in
+    in_proj_weight [3D, D]."""
+    p = m.p
+    for attn, ours in (("self_attn", "sa"), ("multihead_attn", "ca")):
+        w = p[f"{src}{attn}.in_proj_weight"]
+        b = p[f"{src}{attn}.in_proj_bias"]
+        D = w.shape[1]
+        for j, which in enumerate(("q", "k", "v")):
+            m.put(f"{dst}{ours}_{which}.weight", w[j * D:(j + 1) * D])
+            m.put(f"{dst}{ours}_{which}.bias", b[j * D:(j + 1) * D])
+        m.copy(f"{dst}{ours}_out", f"{src}{attn}.out_proj")
+    m.copy(dst + "ff1", src + "linear1")
+    m.copy(dst + "ff2", src + "linear2")
+    for n in ("norm1", "norm2", "norm3"):
+        m.copy(dst + n, src + n)
+
+
+def import_omniparser(sd: Dict[str, torch.Tensor],
+                      model: nn.Module) -> Dict[str, torch.Tensor]:
+    """A full OmniParser checkpoint into the port's `OmniParser`; returns
+    its state dict. Covers everything the reference Checkpointer loads
+    (OCR/OmniParser/utils/checkpointer.py:5): the Swin backbone
+    (`import_swin`), the FPN laterals (model/fpn.py:17: fpn_in[0..3] read
+    c5..c2, the order of lat0..3; 1x1 convs with no bias, so the port's
+    lateral biases are zero), input_proj (a 1x1 stride-2 conv), the
+    DecoderEmbeddings (word + 3 task position embeddings + LayerNorm,
+    model/transformer.py:283-328; the unused `other_position_embeddings` is
+    skipped), and the three task decoders with their 3-layer MLP pred heads
+    (model/transformer.py:26-37).
+
+    For VIE checkpoints with added categories, import into a model of the
+    checkpoint's vocabulary, then grow it with `resize_embedding`, as
+    checkpointer.py:9 does."""
+    out = {f"backbone.{k}": v
+           for k, v in import_swin(sd, model.backbone).items()}
+    rest = nn.ModuleDict({name: getattr(model, name) for name in (
+        "fpn", "input_proj", "embedding", "pt_decoder", "poly_decoder",
+        "rec_decoder")})
+    m = _Mapper({k: v for k, v in sd.items()
+                 if not k.startswith("backbone.0.")}, rest,
+                "import_omniparser")
+    p = m.p
+    for i in range(4):
+        w = p[f"fpn.fpn_in.{i}.weight"]           # [256, cin, 1, 1]
+        m.put(f"fpn.lat{i}.weight", w[:, :, 0, 0])
+        bias = f"fpn.fpn_in.{i}.bias"
+        m.put(f"fpn.lat{i}.bias",
+              p[bias] if bias in p else torch.zeros(w.shape[0]))
+    m.copy("input_proj", "input_proj")
+    e = "transformer.embedding."
+    m.put("embedding.word.weight", p[e + "word_embeddings.weight"])
+    for t in ("pt", "poly", "rec"):
+        m.put(f"embedding.{t}_pos.weight",
+              p[f"{e}{t}_position_embeddings.weight"])
+    _ = f"{e}other_position_embeddings.weight" in p     # read, unused
+    m.copy("embedding.ln", e + "LayerNorm")
+    for t in ("pt", "poly", "rec"):
+        dec = getattr(model, f"{t}_decoder")
+        for i in range(len(dec.layers)):
+            _omni_decoder_layer(m, f"{t}_decoder.layer_{i}.",
+                                f"transformer.{t}_decoder.layers.{i}.")
+        m.copy(f"{t}_decoder.final_norm", f"transformer.{t}_decoder.norm")
+        for j, h in enumerate(("head1", "head2", "head3")):
+            m.copy(f"{t}_decoder.{h}",
+                   f"transformer.{t}_pred_layer.layers.{j}")
+    out.update(m.finish())
+    return out
+
+
+def resize_embedding(model: nn.Module, old: Dict[str, torch.Tensor],
+                     grown_keys, added_rows: int) -> Dict[str, torch.Tensor]:
+    """Checkpoint surgery when fine-tuning adds vocabulary entries
+    (reference OmniParser utils/checkpointer.py:9 resize_embedding): the
+    old tensors fill rows [:-added_rows] of the grown tables `grown_keys`
+    (embeddings, a head's Linear weight [out, in] and bias: rows on axis
+    0), whose last rows keep `model`'s values; every other tensor of
+    `model` takes `old`'s as it is. Loads the result into `model`
+    (strict) and returns it. A shape that fits neither rule raises
+    `ValueError`."""
+    grown_keys = set(grown_keys)
+    out = {}
+    for key, new in model.state_dict().items():
+        o = old[key].to(new.dtype).cpu()
+        if key in grown_keys:
+            if (new.shape[0] != o.shape[0] + added_rows
+                    or new.shape[1:] != o.shape[1:]):
+                raise ValueError(f"resize_embedding: unexpected resize "
+                                 f"{tuple(o.shape)} → {tuple(new.shape)} at "
+                                 f"{key}")
+            o = torch.cat([o, new[-added_rows:].cpu()])
+        elif o.shape != new.shape:
+            raise ValueError(f"resize_embedding: shape mismatch at {key}: "
+                             f"{tuple(o.shape)} vs {tuple(new.shape)}")
+        out[key] = o
+    model.load_state_dict(out, strict=True)
+    return out

@@ -34,7 +34,8 @@ import torch
 from advancedliteratemachinery_tpu_torch.codecs.char_codec import CharCodec
 from advancedliteratemachinery_tpu_torch.codecs.seq_codec import EosSeqCodec
 from advancedliteratemachinery_tpu_torch.core.device import resolve_device
-from advancedliteratemachinery_tpu_torch.models.layers import linear
+from advancedliteratemachinery_tpu_torch.models.layers import (
+    cast_matmul_weights, linear)
 from advancedliteratemachinery_tpu_torch.models.levocr import LevtDictionary
 from advancedliteratemachinery_tpu_torch.ops.image import normalize_crops
 from advancedliteratemachinery_tpu_torch.ops.vocab_decode import (
@@ -224,13 +225,9 @@ class LevOCRInference:
     def __init__(self, model,
                  device: Union[str, torch.device, None] = None):
         self.device = resolve_device(device)
-        self.model = copy.deepcopy(model).to(self.device).eval()
-        # the value each Linear and conv casts its weight to anyway (flax
-        # Dense and Conv with `dtype`), made once; norms, embeddings and
-        # position tables keep float32, as the JAX engine keeps them
-        for m in self.model.modules():
-            if isinstance(m, (torch.nn.Linear, torch.nn.Conv2d)):
-                m.to(model.policy.compute_dtype)
+        self.model = cast_matmul_weights(
+            copy.deepcopy(model).to(self.device).eval(),
+            model.policy.compute_dtype)
         self.model.requires_grad_(False)
         self.dictionary = LevtDictionary(max_len=model.config.max_len)
 

@@ -60,6 +60,17 @@ def init_params(module: nn.Module, generator: torch.Generator) -> None:
                                       generator=generator)
 
 
+def cast_matmul_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every Linear and conv of `model` to `dtype` in place, once: the
+    value `linear` and `conv2d` cast their weights to on every call anyway
+    (flax Dense and Conv with `dtype`). Norms, embeddings and other tables
+    keep float32, as the JAX engines keep them."""
+    for m in model.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            m.to(dtype)
+    return model
+
+
 def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype
            ) -> torch.Tensor:
     """flax Conv(dtype=...): input, kernel and bias in `dtype` (NCHW)."""

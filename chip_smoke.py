@@ -103,14 +103,35 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     and B=1 latency, a profile; on 16 crops the bf16 vision logits against
     f32 on the CPU, and the f32 model on the card (TF32 off) against the
     CPU: vision logits and final tokens (a crop that differs is printed
-    with its smallest decision margin); no port kernel may launch.
+    with its smallest decision margin); no port kernel may launch;
+16. OmniParser, the sixth path: `OmniParserConfig()` (Swin-B + FPN,
+    three 4-layer decoders, d 512, 1000 bins) in bf16 on 8 seeded 640²
+    pages, made readable by `readable_omniparser` so that the pages stop
+    after 4-60 points, at counts that differ, and some words end: the
+    encode at B=1 and B=8, `infer_spotting` pages/s and latency at B=1 (+
+    profile), `SpottingService` pages/s with 8 pages in flight and its
+    slot occupancy, at 8 and at 32 pt slots, where every place its results
+    leave infer_spotting's must be a choice between two classes within
+    bf16's rounding; the f32 model on the card (TF32 off) against the CPU
+    on page 0 (equal tokens; probabilities and teacher-forced logits) and
+    its service against its infer_spotting on all 8 pages; bf16
+    teacher-forced logits against the CPU's own bf16 error; no port kernel
+    may launch. The golden replay and the reference checkpoints take
+    `omniparser.pth` and a full-width OmniParser file too.
+
+Every checked kernel call (K1-K5, and each K4 call of the stress) runs on
+poisoned memory: what the caching allocator is about to hand the wrapper
+is filled with 0xFF bytes first (`poisoned`), so an element the kernel
+never writes comes back NaN or -1; each output must land in the poisoned
+blocks, be finite everywhere (ids in range), and agree with the plain
+version elementwise.
 
 Launch counts are zeroed just before each main path and read just after:
 every recognizer forward must launch the attention kernel 12 times and the
 vocab kernel twice, every LORE forward the deformable conv kernel 16
 times and nothing else, every train step the attention kernel and its
 backward kernel 12 times each and nothing else, and the f32 models, the
-golden replay, LISTER and LevOCR nothing at all. Every time printed is
+golden replay, LISTER, LevOCR and OmniParser nothing at all. Every time printed is
 this card's own, taken with CUDA events or, end to end, with the host
 clock after a synchronize.
 The second-to-last line is one JSON object `{"kernels": [...]}`; the last is
@@ -144,9 +165,12 @@ from advancedliteratemachinery_tpu_torch.engine.fit import (
     FitConfig, fit, restore_train_state)
 from advancedliteratemachinery_tpu_torch.engine.checkpoint import (
     dcn_offset_perm, import_dla, import_levocr, import_levt, import_lister,
-    import_lore_processor, import_mgp_str, load_torch_state_dict)
+    import_lore_processor, import_mgp_str, import_omniparser,
+    load_torch_state_dict)
 from advancedliteratemachinery_tpu_torch.engine.infer import (
     LevOCRInference, LISTERInference, MGPSTRInference)
+from advancedliteratemachinery_tpu_torch.engine.serving import (
+    SpottingService)
 from advancedliteratemachinery_tpu_torch.engine.train import (
     TrainState, make_mgp_str_train_step, make_optimizer, mgp_str_loss)
 from advancedliteratemachinery_tpu_torch.models import layers
@@ -164,6 +188,9 @@ from advancedliteratemachinery_tpu_torch.models.lister import (
 from advancedliteratemachinery_tpu_torch.models.lore import LORE, LoreConfig
 from advancedliteratemachinery_tpu_torch.models.mgp_str import (
     MGPSTR, MGPSTRConfig)
+from advancedliteratemachinery_tpu_torch.models.omniparser import (
+    EOS_CHECK_EVERY, NEG, OmniParser, OmniParserConfig)
+from advancedliteratemachinery_tpu_torch.models.swin import SwinConfig
 from advancedliteratemachinery_tpu_torch.models.vit import ViTConfig
 from advancedliteratemachinery_tpu_torch.ops import _kernels
 from advancedliteratemachinery_tpu_torch.ops.attention import (
@@ -248,13 +275,34 @@ LEVOCR_NULL_SHARE = 0.1
 LEVOCR_DEL_SHARE = 0.3
 # K4's bounded stress phase: pairs of calls at the train shape
 K4_STRESS_PAIRS = 1000
+# OmniParser: seeded 640² pages, and the points each emits with the
+# weights made readable (`readable_omniparser`)
+OMNI_PAGES = 8
+OMNI_POINTS = (4, 60)
+# the SpottingService's pt slots in the timed runs: the default 8 (32 poly
+# and rec slots), and 32 (128 poly and rec slots, infer_spotting's
+# max_instances rows)
+OMNI_SERVICE_SLOTS = (8, 32)
+# the factor on the pt decoder's self-attention queries that
+# `readable_omniparser` sharpens them by
+OMNI_PT_SHARPEN = 16
+# the f32 run on the card against the CPU: decode probabilities and the
+# teacher-forced logits, relative RMS (the same arithmetic summed in other
+# orders, through Swin-B's 24 blocks and 4 decoder layers)
+OMNI_F32_RTOL = 1e-4
+# the bf16 teacher-forced logits on the card against f32 on the CPU,
+# relative RMS, at most this multiple of the same model's error in bf16 on
+# the CPU (as LEVOCR_BF16_HEADS_RATIO)
+OMNI_BF16_RATIO = 1.5
 
 # The golden artifacts' configurations (tests/golden/{mgp_str,lore,lister,
-# levocr}.pth), copied from the JAX tests that build them:
+# levocr,omniparser}.pth), copied from the JAX tests that build them:
 # tests/test_checkpoint_import.py:20 (D, HEADS, DEPTH, T = 32, 2, 2, 9),
 # tests/test_dla_import.py:24-27, tests/golden_common.py:82-86 and
 # :106-109 with tests/test_levocr_import.py:19-22 (DV, DL, MAXLEN = 64, 32,
-# 10); and their tolerances, tests/golden_common.py:391
+# 10), tests/golden_common.py:143-166 with
+# tests/test_omniparser_import.py:27-31; and their tolerances,
+# tests/golden_common.py:391
 GOLDEN_MGP_STR = MGPSTRConfig(batch_max_length=7, bpe_vocab_size=64,
                               wp_vocab_size=64,
                               vit=ViTConfig(embed_dim=32, depth=2,
@@ -270,8 +318,14 @@ GOLDEN_LEVOCR = LevOCRConfig(
     max_len=10, d_model=32, heads=2, ffn=64, layers=1,
     vision=ABINetVisionConfig(max_length=6, num_classes=37, d_model=64,
                               ffn=256))
+GOLDEN_OMNIPARSER = OmniParserConfig(
+    d_model=32, nhead=2, dec_layers=2, dim_feedforward=48,
+    max_position_embeddings=64, num_bins=16, pt_seq_length=8,
+    poly_length=4, rec_length=4, max_instances=4,
+    swin=SwinConfig(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
+                    window_size=4))
 GOLDEN_TOL = {"mgp_str": 2e-4, "lore": 2e-3, "lister": 1e-5,
-              "levocr": 3e-3}
+              "levocr": 3e-3, "omniparser": 2e-3}
 
 ATTN_SRC = "advancedliteratemachinery_tpu_torch/csrc/fused_qkv_attention.cu"
 DECODE_SRC = "advancedliteratemachinery_tpu_torch/csrc/vocab_greedy_decode.cu"
@@ -325,16 +379,19 @@ def bound(n_bytes: float, flops: float):
 def check_attention(B, S, H, safe, gen, time_it=True):
     D = H * 64
     qkv = torch.randn(B, S, 3 * D, generator=gen, device="cuda").bfloat16()
-    out = fused_qkv_attention(qkv, H, safe=safe)
+    out, in_poison = poisoned(lambda: fused_qkv_attention(qkv, H, safe=safe))
     again = fused_qkv_attention(qkv, H, safe=safe)
     qkv32 = qkv.float()
     want = fused_qkv_attention_plain(qkv32, H, safe=safe)
     torch.cuda.synchronize()
     err = (out.float() - want).abs().max().item()
     rec = {"phase": "attention", "B": B, "S": S, "H": H, "safe": safe,
-           "max_abs_err": err, "tol": K1_TOL,
+           "max_abs_err": err, "tol": K1_TOL, "poisoned": in_poison,
+           "nonfinite": positions(~torch.isfinite(out.view(B, S, H, 64)),
+                                  ("batches", "rows", "heads")),
            "repeat_equal": torch.equal(out, again)}
-    require(out.shape == (B, S, D) and err <= K1_TOL and rec["repeat_equal"],
+    require(out.shape == (B, S, D) and err <= K1_TOL and rec["repeat_equal"]
+            and in_poison and rec["nonfinite"]["n"] == 0,
             f"fused_qkv_attention disagrees with its plain version: {rec}")
     if time_it:
         views = qkv.view(B, S, 3, H, 64).permute(2, 0, 3, 1, 4)
@@ -381,18 +438,88 @@ def rel_errors(got, want):
     return err.pow(2).mean().sqrt().item() / rms, err.max().item() / rms
 
 
+def positions(mask, names):
+    """How many elements of the boolean `mask` are set, and for each named
+    dimension (None skips one) the first indices, at most 32, where one
+    is."""
+    nz = mask.nonzero()
+    rec = {"n": len(nz)}
+    for axis, name in enumerate(names):
+        if name:
+            rec[name] = sorted(set(nz[:, axis].tolist()))[:32]
+    return rec
+
+
 def k4_diff(a, b, H):
     """Where two K4 outputs [B, S, 3 * H * 64] differ: how many elements,
     the largest difference, and which parts (0 dq, 1 dk, 2 dv), batches,
     rows and heads."""
     B, S, _ = a.shape
     d = (a.float() - b.float()).abs().view(B, S, 3, H, 64)
-    nz = d.nonzero()
-    return {"n": len(nz), "max": d.max().item(),
-            "parts": sorted(set(nz[:, 2].tolist())),
-            "batches": sorted(set(nz[:, 0].tolist()))[:8],
-            "rows": sorted(set(nz[:, 1].tolist()))[:32],
-            "heads": sorted(set(nz[:, 3].tolist()))[:12]}
+    return {"max": d.max().item(),
+            **positions(d != 0, ("batches", "rows", "parts", "heads"))}
+
+
+def k4_nonfinite(out, H):
+    """The non-finite elements of a K4 output, by part, batch, row and
+    head (`positions`)."""
+    B, S, _ = out.shape
+    return positions(~torch.isfinite(out.view(B, S, 3, H, 64)),
+                     ("batches", "rows", "parts", "heads"))
+
+
+def alloc_plan(fn):
+    """What the caching allocator hands out and takes back during one call
+    of `fn` (its result is dropped), in order: ("alloc", bytes) and
+    ("free", index of the alloc), from the allocator's own trace
+    (`torch.cuda.memory._record_memory_history`)."""
+    mem = torch.cuda.memory
+    dev = torch.cuda.current_device()
+    torch.cuda.synchronize()
+    mem._record_memory_history(enabled="all", context=None, stacks="python")
+    try:
+        n0 = len(mem._snapshot()["device_traces"][dev])
+        out = fn()
+        trace = mem._snapshot()["device_traces"][dev][n0:]
+    finally:
+        mem._record_memory_history(enabled=None)
+    del out
+    plan, live = [], {}
+    for ev in trace:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = sum(step[0] == "alloc" for step in plan)
+            plan.append(("alloc", ev["size"]))
+        elif ev["action"] == "free_requested" and ev["addr"] in live:
+            plan.append(("free", live.pop(ev["addr"])))
+    return plan
+
+
+def poison(plan):
+    """Fill with 0xFF bytes (NaN in f32 and bf16, -1 in int32) the blocks
+    that a call which allocates and frees as `plan` says will get: the same
+    sizes are allocated and freed in the same order, each block filled
+    through a uint8 tensor, and the rest freed at the end. The caching
+    allocator is then back in the state it was in, so the call's own
+    `torch.empty`s get exactly these blocks. Returns their data_ptrs."""
+    blocks, ptrs = [], []
+    for step in plan:
+        if step[0] == "alloc":
+            blocks.append(torch.empty(step[1], dtype=torch.uint8,
+                                      device="cuda").fill_(0xFF))
+            ptrs.append(blocks[-1].data_ptr())
+        else:
+            blocks[step[1]] = None
+    return ptrs
+
+
+def poisoned(fn, plan=None):
+    """fn() on poisoned memory (`poison`; the plan from a first call when
+    none is given) → (its result, whether every tensor it returns lies in
+    a poisoned block: the proof that the poison reached the kernel)."""
+    ptrs = poison(plan if plan is not None else alloc_plan(fn))
+    out = fn()
+    outs = out if isinstance(out, tuple) else (out,)
+    return out, all(t.data_ptr() in ptrs for t in outs)
 
 
 def check_attention_bwd(B, S, H, gen, time_it=False, scale=None):
@@ -401,8 +528,12 @@ def check_attention_bwd(B, S, H, gen, time_it=False, scale=None):
     D = H * 64
     qkv = torch.randn(B, S, 3 * D, generator=gen, device="cuda").bfloat16()
     dout = torch.randn(B, S, D, generator=gen, device="cuda").bfloat16()
-    got = fused_qkv_attention_bwd(qkv, dout, H, scale)
-    again = fused_qkv_attention_bwd(qkv, dout, H, scale)
+    # both calls on poisoned output and statistics memory
+    plan = alloc_plan(lambda: fused_qkv_attention_bwd(qkv, dout, H, scale))
+    got, in_poison = poisoned(
+        lambda: fused_qkv_attention_bwd(qkv, dout, H, scale), plan)
+    again, again_in_poison = poisoned(
+        lambda: fused_qkv_attention_bwd(qkv, dout, H, scale), plan)
     want = fused_qkv_attention_bwd_plain(qkv, dout, H, scale).float()
     want32 = fused_qkv_attention_bwd_plain(qkv.float(), dout.float(), H,
                                            scale)
@@ -410,6 +541,8 @@ def check_attention_bwd(B, S, H, gen, time_it=False, scale=None):
     rec = {"phase": "attention_bwd", "B": B, "S": S, "H": H, "scale": scale,
            "max_abs_err": (got.float() - want).abs().max().item(),
            "tol": [K4_RMS_TOL, K4_MAX_TOL],
+           "poisoned": [in_poison, again_in_poison],
+           "nonfinite": [k4_nonfinite(got, H), k4_nonfinite(again, H)],
            "repeat_equal": torch.equal(got, again)}
     again_ok = True
     for i, name in enumerate(("dq", "dk", "dv")):
@@ -425,7 +558,8 @@ def check_attention_bwd(B, S, H, gen, time_it=False, scale=None):
     if not rec["repeat_equal"]:
         rec["repeat_diff"] = k4_diff(got, again, H)
     require(got.shape == qkv.shape and rec["repeat_equal"] and again_ok
-            and all(
+            and in_poison and again_in_poison
+            and not any(n["n"] for n in rec["nonfinite"]) and all(
         rec[f"{n}_rel_rms_err"] <= K4_RMS_TOL
         and rec[f"{n}_max_err_over_rms"] <= K4_MAX_TOL
         and rec[f"{n}_vs_f32"][0] <= K4_RMS_TOL
@@ -467,7 +601,7 @@ def check_mha(B, S, H, gen, time_it=False, layout="qkv"):
     """K5 against its plain version in f32 on the same bf16 inputs, read
     in place through their strides (`mha_inputs`)."""
     q, k, v = mha_inputs(B, S, H, gen, layout)
-    out = mha_short_seq(q, k, v)
+    out, in_poison = poisoned(lambda: mha_short_seq(q, k, v))
     again = mha_short_seq(q, k, v)
     f32 = [t.float() for t in (q, k, v)]
     want = mha_short_seq_plain(*f32)
@@ -475,10 +609,14 @@ def check_mha(B, S, H, gen, time_it=False, layout="qkv"):
     rec = {"phase": "mha_short_seq", "B": B, "S": S, "H": H,
            "layout": layout,
            "max_abs_err": (out.float() - want).abs().max().item(),
-           "tol": K1_TOL, "repeat_equal": torch.equal(out, again)}
+           "tol": K1_TOL, "poisoned": in_poison,
+           "nonfinite": positions(~torch.isfinite(out),
+                                  ("batches", "rows", "heads")),
+           "repeat_equal": torch.equal(out, again)}
     rec["rel_rms_err"] = rel_errors(out, want)[0]
     require(out.shape == (B, S, H, 64) and rec["max_abs_err"] <= K1_TOL
-            and rec["repeat_equal"],
+            and rec["repeat_equal"] and in_poison
+            and rec["nonfinite"]["n"] == 0,
             f"mha_short_seq disagrees with its plain version: {rec}")
     if time_it:
         rec["ms"] = cuda_ms(lambda: mha_short_seq(q, k, v))
@@ -496,24 +634,29 @@ def check_mha(B, S, H, gen, time_it=False, layout="qkv"):
 def k4_stress(gen, pairs):
     """K4's repeatability under load: `pairs` pairs of calls at the train
     shape (B=128, S=257, H=12) on fixed inputs, each call's bits against a
-    first reference call's. Before each pair, in turn: nothing, a K4 call
-    at another shape (the scaled-q path among them), K1 and K5, or another
-    K4 shape and a synchronize; a side stream keeps bf16 matmuls running
-    beside the calls. The flags stay on the card and are read once every
-    10 pairs; the first differing call is described by `k4_diff`. Also
-    driven by `k4_repeats.py`."""
+    first reference call's, each on poisoned output and statistics memory
+    (`poison`; a call that left an element unwritten would return NaN
+    there). Before each pair, in turn: nothing, a K4 call at another shape
+    (the scaled-q path among them), K1 and K5, or another K4 shape and a
+    synchronize; a side stream keeps bf16 matmuls running beside the
+    calls. The flags stay on the card and are read once every 10 pairs;
+    the first differing call is described by `k4_diff`, the first
+    non-finite one by `k4_nonfinite`. Also driven by `k4_repeats.py`."""
     t0 = time.perf_counter()
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
     big = (randn(128, 257, 3 * 768), randn(128, 257, 768))
     ref = fused_qkv_attention_bwd(*big, 12)
+    plan = alloc_plan(lambda: fused_qkv_attention_bwd(*big, 12))
     others = [((randn(B, S, 3 * H * 64), randn(B, S, H * 64)), H, scale)
               for B, S, H, scale in ((1, 768, 2, 0.3), (2, 257, 3, 0.1),
                                      (3, 63, 1, None), (1, 768, 12, None))]
     k1_in = randn(256, 257, 3 * 768)
     side, a = torch.cuda.Stream(), randn(8192, 8192)
     a.record_stream(side)
-    bad, first, group = 0, None, 10
+    bad, nonfinite, unpoisoned = 0, 0, 0
+    first, first_nonfinite = None, None
+    group = 10
     for g0 in range(0, pairs, group):
         with torch.cuda.stream(side):
             for _ in range(4):
@@ -530,22 +673,36 @@ def k4_stress(gen, pairs):
                 fused_qkv_attention(k1_in, 12, safe=bool(i % 8 == 2))
                 q, k, v = k1_in[:128].view(128, 257, 3, 12, 64).unbind(2)
                 mha_short_seq(q, k, v)
-            outs += [fused_qkv_attention_bwd(*big, 12) for _ in range(2)]
-        flags = torch.stack([(o != ref).any() for o in outs]).cpu()
-        bad += int(flags.sum())
-        if first is None and flags.any():
-            at = int(flags.nonzero()[0, 0])
+            for _ in range(2):
+                out, in_poison = poisoned(
+                    lambda: fused_qkv_attention_bwd(*big, 12), plan)
+                outs.append(out)
+                unpoisoned += not in_poison
+        flags = torch.stack([torch.stack([(o != ref).any(),
+                                          ~torch.isfinite(o).all()])
+                             for o in outs]).cpu()
+        bad += int(flags[:, 0].sum())
+        nonfinite += int(flags[:, 1].sum())
+        if first is None and flags[:, 0].any():
+            at = int(flags[:, 0].nonzero()[0, 0])
             first = {"pair": g0 + at // 2, **k4_diff(outs[at], ref, 12)}
+        if first_nonfinite is None and flags[:, 1].any():
+            at = int(flags[:, 1].nonzero()[0, 0])
+            first_nonfinite = {"pair": g0 + at // 2,
+                               **k4_nonfinite(outs[at], 12)}
     side.synchronize()
     return {"phase": "k4_repeats", "pairs": pairs, "calls": 2 * pairs,
             "calls_differing": bad, "first_diff": first,
+            "calls_nonfinite": nonfinite, "first_nonfinite": first_nonfinite,
+            "calls_not_on_poison": unpoisoned,
             "seconds": time.perf_counter() - t0}
 
 
 def k4_repeats_phase(gen):
     rec = k4_stress(gen, K4_STRESS_PAIRS)
     emit(rec)
-    require(rec["calls_differing"] == 0 and rec["seconds"] <= 15.0,
+    require(rec["calls_differing"] == 0 and rec["calls_nonfinite"] == 0
+            and rec["calls_not_on_poison"] == 0 and rec["seconds"] <= 15.0,
             f"K4 repeat stress: {rec}")
 
 
@@ -566,7 +723,8 @@ def check_decode(M, V, true_v, gen, time_it=True, extra_pairs=()):
         w[j1] = w[j2] = 0.1 * s
         b[j2] = b[j1]
     tok, w, b = tok.bfloat16(), w.bfloat16(), b.bfloat16()
-    ids, pmax = matmul_greedy_decode(tok, w, b, true_v)
+    (ids, pmax), in_poison = poisoned(
+        lambda: matmul_greedy_decode(tok, w, b, true_v))
     pids, ppmax = matmul_greedy_decode_plain(tok, w, b, true_v)
     logits = (tok.float() @ w.float().t() + b.float())[:, :true_v]
     top2 = logits.topk(2, dim=-1).values
@@ -580,7 +738,16 @@ def check_decode(M, V, true_v, gen, time_it=True, extra_pairs=()):
            "id_mismatches": int(differ.sum()), "id_mismatches_off_ties": n_bad,
            "tie_rows": [int(ids[i]) for i in range(len(pairs))],
            "max_abs_err": pmax_err.max().item(),
-           "max_rel_err": (pmax_err / ppmax).max().item()}
+           "max_rel_err": (pmax_err / ppmax).max().item(),
+           "poisoned": in_poison,
+           "ids_out_of_range": positions((ids < 0) | (ids >= true_v),
+                                         ("rows",)),
+           "pmax_not_in_0_1": positions(~((pmax > 0) & (pmax <= 1)),
+                                        ("rows",))}
+    require(in_poison and rec["ids_out_of_range"]["n"] == 0
+            and rec["pmax_not_in_0_1"]["n"] == 0,
+            f"vocab_greedy_decode left ids or probabilities unwritten: "
+            f"{rec}")
     require(n_bad == 0, f"ids differ off near-ties: {rec}")
     require([j1 for j1, _ in pairs] == rec["tie_rows"]
             == [int(pids[i]) for i in range(len(pairs))],
@@ -623,7 +790,7 @@ def check_deform_conv(B, H, W, Cin, Cout, gen, case="normal",
     w = (torch.randn(3, 3, Cin, Cout, generator=gen, device=dev)
          / (9 * Cin) ** 0.5).bfloat16()
     b = torch.randn(Cout, generator=gen, device=dev).bfloat16()
-    out = deform_conv2d(x, off, mask, w, b)
+    out, in_poison = poisoned(lambda: deform_conv2d(x, off, mask, w, b))
     f32 = [t.float() for t in (x, off, mask, w, b)]
     want = deform_conv2d_plain(*f32)
     torch.cuda.synchronize()
@@ -633,8 +800,11 @@ def check_deform_conv(B, H, W, Cin, Cout, gen, case="normal",
            "Cout": Cout, "case": case, "max_abs_err": err.max().item(),
            "rel_rms_err": err.pow(2).mean().sqrt().item() / rms,
            "max_err_over_rms": err.max().item() / rms,
-           "tol": [K3_RMS_TOL, K3_MAX_TOL]}
-    require(out.shape == (B, H, W, Cout)
+           "tol": [K3_RMS_TOL, K3_MAX_TOL], "poisoned": in_poison,
+           "nonfinite": positions(~torch.isfinite(out),
+                                  ("batches", "rows", "cols"))}
+    require(out.shape == (B, H, W, Cout) and in_poison
+            and rec["nonfinite"]["n"] == 0
             and rec["rel_rms_err"] <= K3_RMS_TOL
             and rec["max_err_over_rms"] <= K3_MAX_TOL,
             f"deform_conv disagrees with its plain version: {rec}")
@@ -1032,10 +1202,10 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def golden_replay():
-    """tests/golden/{mgp_str,lore,lister,levocr}.pth through the port's
-    `load_torch_state_dict` and importers into the port's models in f32 on
-    the card (which no kernel takes), against the committed outputs of the
-    reference's math at the golden tolerances (rtol = atol)."""
+    """tests/golden/{mgp_str,lore,lister,levocr,omniparser}.pth through the
+    port's `load_torch_state_dict` and importers into the port's models in
+    f32 on the card (which no kernel takes), against the committed outputs
+    of the reference's math at the golden tolerances (rtol = atol)."""
     t0 = time.perf_counter()
 
     def load(family):
@@ -1071,6 +1241,14 @@ def golden_replay():
         outs["levocr"] = {k: (got[k], data[f"out_{k}"]) for k in (
             "vision_logits", "mask_ins_logits", "word_ins_logits",
             "word_del_logits")}
+        sd, data = load("omniparser")
+        model = OmniParser(GOLDEN_OMNIPARSER, policy=FP32_POLICY)
+        import_omniparser(sd, model)
+        got = model(torch.from_numpy(data["in_image"]).cuda(),
+                    {k: torch.from_numpy(data[f"in_seq_{k}"]).cuda()
+                     for k in ("pt", "poly", "rec")})
+        outs["omniparser"] = {k: (got[k], data[f"out_{k}"])
+                              for k in ("pt", "poly", "rec")}
         return outs
 
     outs, counts = counted(run)
@@ -1239,6 +1417,90 @@ def reference_levocr_state(cfg, gen):
     sd["levt.decoder.text_pos_emb"] = rnd(1, P, d)
     sd["levt.decoder.img_pos_emb"] = rnd(1, 96, d)
     sd["levt.decoder.version"] = torch.tensor([3.0])
+    return sd
+
+
+def reference_omniparser_state(cfg, gen):
+    """A reference-layout OmniParser state dict (OCR/OmniParser
+    model/omniparser.py) for `cfg`, written from the reference's module
+    names independently of the importers: the Swin backbone as the
+    Joiner's element 0 (`backbone.0.`: patch_embed, layers.{s}.blocks.{b}
+    with their relative_position_index buffers, layers.{s}.downsample,
+    the stage norms norm{s}), the FPN laterals (fpn.fpn_in.{i}: 1x1 convs
+    without bias, c5 first), input_proj, `transformer.embedding.` (word and
+    four position tables, `other` among them, and LayerNorm), and per task
+    `transformer.{t}_decoder.` (nn.MultiheadAttention's packed in_proj,
+    linear1/2, norm1-3, norm) and `transformer.{t}_pred_layer.layers.{j}`.
+    Values drawn from `gen`."""
+    sd = {}
+    sw, d = cfg.swin_config(), cfg.d_model
+    nc = cfg.vocab().num_classes
+
+    def rnd(*shape, std=0.02):
+        return torch.randn(*shape, generator=gen) * std
+
+    def lin(name, o, i, bias=True):
+        sd[f"{name}.weight"] = rnd(o, i, std=i ** -0.5)
+        if bias:
+            sd[f"{name}.bias"] = rnd(o)
+
+    def norm(name, c):
+        sd[f"{name}.weight"] = 1.0 + rnd(c, std=0.1)
+        sd[f"{name}.bias"] = rnd(c)
+
+    b0, E, w = "backbone.0.", sw.embed_dim, sw.window_size
+    sd[b0 + "patch_embed.proj.weight"] = rnd(E, 3, 4, 4, std=48 ** -0.5)
+    sd[b0 + "patch_embed.proj.bias"] = rnd(E)
+    norm(b0 + "patch_embed.norm", E)
+    n = w * w
+    coords = torch.stack(torch.meshgrid(torch.arange(w), torch.arange(w),
+                                        indexing="ij")).flatten(1)
+    rel = (coords[:, :, None] - coords[:, None, :]).permute(1, 2, 0) + w - 1
+    rpi = rel[..., 0] * (2 * w - 1) + rel[..., 1]
+    for s, depth in enumerate(sw.depths):
+        dim, heads = sw.stage_dims[s], sw.num_heads[s]
+        for b in range(depth):
+            pre = f"{b0}layers.{s}.blocks.{b}."
+            norm(pre + "norm1", dim)
+            lin(pre + "attn.qkv", 3 * dim, dim)
+            lin(pre + "attn.proj", dim, dim)
+            sd[pre + "attn.relative_position_bias_table"] = rnd(
+                (2 * w - 1) ** 2, heads)
+            sd[pre + "attn.relative_position_index"] = rpi.reshape(n, n)
+            norm(pre + "norm2", dim)
+            lin(pre + "mlp.fc1", 4 * dim, dim)
+            lin(pre + "mlp.fc2", dim, 4 * dim)
+        if s < len(sw.depths) - 1:
+            pre = f"{b0}layers.{s}.downsample."
+            lin(pre + "reduction", 2 * dim, 4 * dim, bias=False)
+            norm(pre + "norm", 4 * dim)
+        norm(f"{b0}norm{s}", dim)
+    for i in range(4):
+        cin = sw.stage_dims[3 - i]
+        sd[f"fpn.fpn_in.{i}.weight"] = rnd(256, cin, 1, 1, std=cin ** -0.5)
+    sd["input_proj.weight"] = rnd(d, 1024, 1, 1, std=1024 ** -0.5)
+    sd["input_proj.bias"] = rnd(d)
+    e = "transformer.embedding."
+    sd[e + "word_embeddings.weight"] = rnd(nc, d, std=1.0)
+    for t in ("pt", "poly", "rec", "other"):
+        sd[f"{e}{t}_position_embeddings.weight"] = rnd(
+            cfg.max_position_embeddings, d)
+    norm(e + "LayerNorm", d)
+    for t in ("pt", "poly", "rec"):
+        for i in range(cfg.dec_layers):
+            pre = f"transformer.{t}_decoder.layers.{i}."
+            for attn in ("self_attn", "multihead_attn"):
+                sd[f"{pre}{attn}.in_proj_weight"] = rnd(3 * d, d,
+                                                        std=d ** -0.5)
+                sd[f"{pre}{attn}.in_proj_bias"] = rnd(3 * d)
+                lin(f"{pre}{attn}.out_proj", d, d)
+            lin(pre + "linear1", cfg.dim_feedforward, d)
+            lin(pre + "linear2", d, cfg.dim_feedforward)
+            for k in ("norm1", "norm2", "norm3"):
+                norm(pre + k, d)
+        norm(f"transformer.{t}_decoder.norm", d)
+        for j, o in enumerate((d, d, nc)):
+            lin(f"transformer.{t}_pred_layer.layers.{j}", o, d)
     return sd
 
 
@@ -1448,6 +1710,28 @@ def reference_checkpoints():
         except ValueError as e:
             rec["levocr_untied_refused"] = "embed_tokens" in str(e)
         del sd, untied
+        omni_cfg = OmniParserConfig()
+        omni_sd = reference_omniparser_state(
+            omni_cfg, torch.Generator().manual_seed(18))
+        omni_path = os.path.join(tmp, "omniparser.pth")
+        torch.save({"model": {f"module.{k}": v for k, v in omni_sd.items()}},
+                   omni_path)
+        rec["omniparser_cached_share_after_evict"] = evict_from_page_cache(
+            omni_path)
+        t0 = time.perf_counter()
+        sd = load_torch_state_dict(omni_path)
+        t1 = time.perf_counter()
+        omni = OmniParser(omni_cfg, seed=6)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        import_omniparser(sd, omni)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rec["omniparser_s"] = {"load_after_evict": t1 - t0,
+                               "load_cached": timed_load(omni_path),
+                               "build": t2 - t1, "import": t3 - t2,
+                               "file_mb": os.path.getsize(omni_path) / 1e6}
+        del sd
     rec["unused_key_warnings"] = [str(w.message) for w in caught]
     want = source.state_dict()
     rec["lore_round_trip_equal"] = all(
@@ -1503,9 +1787,31 @@ def reference_checkpoints():
         images[:64]))
     rec["levocr_launches"] = lev_counts
     rec["levocr_recognize_first"] = lev_texts[:4]
+    del lev_engine
+    got = omni.state_dict()
+    b = "backbone.0.layers.2.blocks.17."
+    omni_want = {
+        "embedding.word.weight":
+            omni_sd["transformer.embedding.word_embeddings.weight"],
+        "backbone.stage2_block17.attn.relative_position_bias_table":
+            omni_sd[b + "attn.relative_position_bias_table"],
+        "fpn.lat3.weight": omni_sd["fpn.fpn_in.3.weight"][:, :, 0, 0],
+        "rec_decoder.layer_3.ca_v.bias": omni_sd[
+            "transformer.rec_decoder.layers.3.multihead_attn.in_proj_bias"
+        ][1024:]}
+    rec["omniparser_tensors_as_written"] = all(
+        torch.equal(got[k].cpu(), v) for k, v in omni_want.items())
+    del omni_sd
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    page = torch.randn(1, 640, 640, 3, generator=gen, device="cuda")
+    with torch.inference_mode():
+        enc, omni_counts = counted(lambda: omni.encode(page))
+    rec["omniparser_launches"] = omni_counts
+    rec["omniparser_memory_finite"] = all(
+        bool(torch.isfinite(t).all()) for t in enc)
+    del omni, enc
     rec["seconds"] = time.perf_counter() - t_phase
     emit(rec)
-    del lev_engine
     torch.cuda.empty_cache()
     require(not rec["unused_key_warnings"],
             f"importers left checkpoint tensors unused: {rec}")
@@ -1526,6 +1832,9 @@ def reference_checkpoints():
         0.0 <= c <= 1.0 and h == "levocr" for _, c, h in lev_texts),
         f"imported LevOCR: launches {lev_counts}, or recognize() "
         f"malformed: {lev_texts[:4]}")
+    require(rec["omniparser_tensors_as_written"] and omni_counts == {}
+            and rec["omniparser_memory_finite"],
+            f"imported OmniParser malformed: {rec}")
 
 
 def lister_phase():
@@ -1840,6 +2149,518 @@ def levocr_phase():
             f"LevOCR recognize() output malformed: {texts}")
 
 
+class _Capped(Exception):
+    """Raised by a mask function to cut a decode at a step cap."""
+
+
+def _capped(mask, cap):
+    def fn(i, logits):
+        if i >= cap:
+            raise _Capped
+        return mask(i, logits)
+    return fn
+
+
+def readable_omniparser(model, pages, points=OMNI_POINTS):
+    """Make seeded random OmniParser weights decode `pages` [P, H, W, 3]
+    into something worth comparing. As drawn, the pt head's EOS never wins,
+    so a page's point sequence would run to pt_seq_length, and no word
+    ends. Raising an EOS class's bias by b ends a sequence at the first
+    step whose margin of the best allowed class over EOS is below b, and
+    changes nothing before it. But as drawn the pt decoder's self-attention
+    is near uniform, each page's point sequence soon settles into a few
+    repeated tokens, and its margin reaches its low within the first few
+    points, so that any b ends most pages at the same 3 or so points. As
+    `readable_levocr` sharpens its position queries, multiply the pt
+    decoder's self-attention queries by OMNI_PT_SHARPEN: each step then
+    attends to a few earlier tokens, the sequences keep changing, and the
+    margins' running minima fall at steps that differ from page to page.
+    Every decode here runs on the shapes `infer_spotting` decodes (one page
+    with a cache of pt_seq_length steps, cut at a step cap; then
+    max_instances rows), whose products it repeats bit for bit. So:
+    1. pt: decode each page's points with EOS masked out for 2·points[1] +
+       2 steps, recording the margin at each even step (where EOS may
+       come). Each midpoint b between the pages' running minima predicts
+       every page's point count; the candidates whose counts all lie in
+       [points[0], points[1]] are tried in order (most distinct counts,
+       then widest gap): with b added to the bias, each page is decoded
+       for real, up to the cap, and the first b with which every page
+       stops within those bounds, at counts that differ (two instances
+       at least, for step 2), is kept. (A
+       lifted logit rounds to bf16 anew, so a page whose margin lies
+       within a rounding of b may stop elsewhere.)
+    2. rec: on those points, decode each page's words with EOS masked out,
+       recording each row's smallest margin; b is the midpoint of the
+       widest gap among the middle half of those, so that about half the
+       words end before rec_length.
+    Returns what it chose, the points per page and the half-gaps."""
+    c, v = model.config, model.vocab_layout
+    lo, hi = points
+    dev = pages.device
+    ids = torch.arange(v.num_classes, device=dev)
+    coord = ids < c.num_bins
+    coord_or_eos = coord | (ids == v.pt_eos_index)
+    rec_other = ((ids >= c.num_bins) & (ids < v.rec_eos_index)
+                 & (ids != v.pt_eos_index) & (ids != v.poly_eos_index))
+    prompt = torch.as_tensor(v.pt_prompt(c.use_char_window_prompt),
+                             device=dev)[None]
+    bias = model.pt_decoder.head3.bias
+    with torch.no_grad():
+        for layer in model.pt_decoder.layers:
+            layer.sa_q.weight.mul_(OMNI_PT_SHARPEN)
+            layer.sa_q.bias.mul_(OMNI_PT_SHARPEN)
+
+    def pt_decode(mem, mask, cap, eos_id=None):
+        """The page's point decode as infer_spotting runs it, cut at
+        `cap` steps: its tokens, or None when cut."""
+        try:
+            return model._greedy(model.pt_decoder, "pt", prompt, *mem,
+                                 c.pt_seq_length, _capped(mask, cap),
+                                 eos_id=eos_id)[0][0]
+        except _Capped:
+            return None
+
+    def rec_record(margins):
+        def mask(i, logits):
+            other = torch.where(rec_other[None], logits, NEG)
+            margins.append(other.amax(-1) - logits[:, v.rec_eos_index])
+            return other
+        return mask
+
+    with torch.inference_mode():
+        mems, toks, lows = [], [], []
+        for page in pages:
+            mem = model.encode(page[None])
+            margins, chosen = [], []
+
+            def record(i, logits):
+                if i % 2 == 0:
+                    margins.append(logits[0, :c.num_bins].amax()
+                                   - logits[0, v.pt_eos_index])
+                masked = torch.where(coord[None], logits, NEG)
+                chosen.append(torch.argmax(masked, dim=-1)[0])
+                return masked
+
+            pt_decode(mem, record, 2 * hi + 2)
+            mems.append(mem)
+            toks.append(torch.stack(chosen).to(torch.int32))
+            lows.append(torch.stack(margins).cummin(0).values.cpu())
+        lows = torch.stack(lows)                                 # [P, K]
+
+        def n_points(b):
+            below = lows < b
+            return [int(r.nonzero()[0, 0]) if r.any() else lows.shape[1]
+                    for r in below]
+
+        r = torch.unique(lows.flatten()).tolist()
+        candidates = []
+        for a, b in zip(r, r[1:]):
+            n = n_points((a + b) / 2)
+            if all(lo <= k <= hi for k in n):
+                candidates.append(((len(set(n)), (b - a) / 2), (a + b) / 2))
+        candidates.sort(reverse=True)
+        n_candidates = len(candidates)
+        real_mask = lambda i, logits: torch.where(
+            (coord_or_eos if i % 2 == 0 else coord)[None], logits, NEG)
+        tried, pt_lift = [], None
+        for key, b in candidates[:6]:
+            with torch.no_grad():
+                bias[v.pt_eos_index] += b
+            n = []
+            for mem in mems:
+                t = pt_decode(mem, real_mask, 2 * hi + 2 + EOS_CHECK_EVERY,
+                              v.pt_eos_index)
+                hit = (None if t is None
+                       else (t == v.pt_eos_index).nonzero())
+                n.append(None if hit is None or not len(hit)
+                         else int(hit[0, 0]) // 2)
+            tried.append({"lift": b, "half_gap": key[1],
+                          "predicted": n_points(b), "points": n})
+            if (None not in n and lo <= min(n) and max(n) <= hi
+                    and len(set(n)) > 1 and sum(n) > 1):
+                pt_lift = b
+                break
+            with torch.no_grad():
+                bias[v.pt_eos_index] -= b
+        require(pt_lift is not None, f"no EOS lift ends every page "
+                f"within {lo}-{hi} points: {tried}")
+        rec_lows = []
+        for p, mem in enumerate(mems):
+            pairs = torch.zeros((c.max_instances, 2), dtype=torch.int32,
+                                device=dev)
+            pairs[:n[p]] = toks[p][:2 * n[p]].reshape(n[p], 2)
+            rec_prompt = torch.cat([pairs, torch.full(
+                (c.max_instances, 1), v.rec_sos_index, dtype=torch.int32,
+                device=dev)], 1)
+            margins = []
+            model._greedy(model.rec_decoder, "rec", rec_prompt, *mem,
+                          c.rec_length, rec_record(margins))
+            rec_lows.append(torch.stack(margins, 1)[:n[p]].amin(1).cpu())
+        rec_lows = torch.sort(torch.cat(rec_lows)).values
+        q = len(rec_lows)
+        mid = rec_lows[q // 4:3 * q // 4 + 1]
+        j = int((mid[1:] - mid[:-1]).argmax())
+        rec_lift = float(mid[j] + mid[j + 1]) / 2
+        with torch.no_grad():
+            model.rec_decoder.head3.bias[v.rec_eos_index] += rec_lift
+    return {"pt_lift": pt_lift, "pt_candidates": n_candidates,
+            "pt_tried": tried, "points": n,
+            "rec_lift": rec_lift,
+            "rec_half_gap": float(mid[j + 1] - mid[j]) / 2,
+            "rec_rows_ending_early": int((rec_lows < rec_lift).sum()),
+            "rec_rows": q}
+
+
+def spotting_summary(out, vocab):
+    """One infer_spotting result on the host: the points, the words up to
+    EOS (tokens and strings) and whether each ended by EOS."""
+    n = int(out["instance_valid"].sum())
+    recs = out["rec_tokens"][0, :n].tolist()
+    words = [r[:r.index(vocab.rec_eos_index)] if vocab.rec_eos_index in r
+             else r for r in recs]
+    return {"points": out["points"][0, :n].tolist(),
+            "polygons": out["polygons"][0, :n].tolist(), "words": words,
+            "strings": [vocab.decode_text(w) for w in words],
+            "ended": [vocab.rec_eos_index in r for r in recs]}
+
+
+def served_equal(served, summary):
+    """Whether a SpottingService result holds an infer_spotting summary's
+    points, polygons and words up to EOS."""
+    return (served["points"].tolist() == summary["points"]
+            and [list(p) for p in served["polygons"]] == summary["polygons"]
+            and [list(w) for w in served["rec_tokens"]] == summary["words"])
+
+
+def divergences(served, out, vocab):
+    """Where a SpottingService result leaves infer_spotting's `out` on the
+    same page: the first differing decision of the pt sequence, or, when
+    the points agree, of each polygon and word row (the rows decode
+    independently). Each is {stage, row, step, the prefix infer_spotting
+    decoded before it, its token ("want") and the service's ("got")}.
+    Sequences are compared up to and including their EOS."""
+    def upto(seq, eos):
+        return seq[:seq.index(eos) + 1] if eos in seq else seq
+
+    def first(want, got):
+        for j, (a, b) in enumerate(zip(want, got)):
+            if a != b:
+                return j
+        return None
+
+    def div(stage, row, want, got):
+        j = first(want, got)
+        return [] if j is None else [{"stage": stage, "row": row, "step": j,
+                                      "prefix": want[:j], "want": want[j],
+                                      "got": got[j]}]
+    v = vocab
+    pts = served["points"].tolist()
+    found = div("pt", 0, upto(out["pt_tokens"][0].tolist(), v.pt_eos_index),
+                [t for xy in pts for t in xy] + [v.pt_eos_index])
+    if found:
+        return found
+    for r, xy in enumerate(pts):
+        found += div("poly", r, out["polygons"][0, r].tolist(),
+                     list(served["polygons"][r]))
+        want = out["rec_tokens"][0, r].tolist()
+        got = list(served["rec_tokens"][r])
+        found += div("rec", r, upto(want, v.rec_eos_index),
+                     got + [v.rec_eos_index] * (len(got) < len(want)))
+    for d in found:
+        d["xy"] = pts[d["row"]] if d["stage"] != "pt" else None
+    return found
+
+
+def divergence_margin(d, page, bf16, f32):
+    """At a divergence `d` (see `divergences`) of the bf16 service from
+    bf16 infer_spotting on `page` [1, H, W, 3]: the f32 model's logit gap
+    between the two tokens chosen there, and the largest error of the bf16
+    model's logits against f32 over the classes allowed there, both from
+    teacher-forced passes over the common prefix. Two bf16 paths can part
+    there through rounding alone only if the gap is at most twice that
+    error."""
+    c, v = f32.config, f32.vocab_layout
+    task = d["stage"]
+    if task == "pt":
+        prompt = list(v.pt_prompt(c.use_char_window_prompt))
+    else:
+        prompt = d["xy"] + [v.poly_sos_index if task == "poly"
+                            else v.rec_sos_index]
+    ids = torch.tensor([prompt + d["prefix"]], dtype=torch.int32,
+                       device=page.device)
+    logits = []
+    with torch.inference_mode():
+        for mdl in (bf16, f32):
+            emb, qpos = mdl.embedding(ids, task)
+            logits.append(getattr(mdl, f"{task}_decoder")(
+                emb, qpos, *mdl.encode(page))[0, -1].float())
+    k = torch.arange(v.num_classes, device=page.device)
+    if task == "rec":
+        allow = ((k >= c.num_bins) & (k <= v.rec_eos_index)
+                 & (k != v.pt_eos_index) & (k != v.poly_eos_index))
+    else:
+        allow = (k < c.num_bins) | ((k == v.pt_eos_index) & (task == "pt")
+                                    & (d["step"] % 2 == 0))
+    err = (logits[0] - logits[1])[allow].abs().max().item()
+    gap = abs(logits[1][d["want"]] - logits[1][d["got"]]).item()
+    return {"stage": task, "row": d["row"], "step": d["step"],
+            "want": d["want"], "got": d["got"], "f32_gap": gap,
+            "bf16_err": err}
+
+
+def serve_pages(model, pages, n_slots):
+    """`pages` (host arrays) submitted at once to a SpottingService of
+    `model` with `n_slots` pt slots (4 x n_slots poly and rec slots), after
+    one page to warm it up: the results, {pages/s, slot occupancy and
+    ticks per stage}, and the kernel launches of the timed run."""
+    svc = SpottingService(model, n_slots=n_slots,
+                          encode_batch=len(pages)).start()
+    try:
+        svc(pages[:1], timeout=300)                              # warm up
+        for srv in (svc.pt_server, svc.poly_server, svc.rec_server):
+            srv.stats = {k: 0 for k in srv.stats}
+
+        def serve():
+            t0 = time.perf_counter()
+            futs = [svc.submit(p) for p in pages]
+            res = [f.result(timeout=300) for f in futs]
+            return res, time.perf_counter() - t0
+        (served, seconds), counts = counted(serve)
+        return served, {
+            "pages_per_s": len(pages) / seconds,
+            "occupancy": svc.occupancy,
+            "ticks": {n: srv.stats["ticks"] for n, srv in (
+                ("pt", svc.pt_server), ("poly", svc.poly_server),
+                ("rec", svc.rec_server))}}, counts
+    finally:
+        svc.stop()
+
+
+def omniparser_phase():
+    """OmniParser, the sixth path: the JAX default OmniParserConfig()
+    (Swin-B: embed 128, depths 2-2-18-2, window 7; FPN to 1024 channels;
+    three decoders of 4 layers, d 512, 8 heads, ffn 2048; 1000 bins, pt
+    length 1024, poly 32, rec 25, 128 instances) in bf16 on seeded 640²
+    pages (the JAX CLI's default --image-size), with seeded weights made
+    readable (`readable_omniparser`): the encode at B=1 and B=8 (CUDA
+    events), `infer_spotting` at B=1 (pages/s, p50/p99 latency, the decode
+    steps each stage ran, a profile), and `SpottingService` on the 8 pages
+    submitted at once, at each of OMNI_SERVICE_SLOTS (pages/s, slot
+    occupancy), against infer_spotting page by page: bf16 rounds
+    differently on the service's batch shapes, so each place where a
+    result parts from infer_spotting's must be a choice whose f32 gap is
+    at most twice the bf16 error there (`divergence_margin`); the f32
+    model on the card (TF32 off): its service equal
+    to its infer_spotting on all 8 pages, and on page 0 against the CPU:
+    equal tokens, probabilities and teacher-forced logits within
+    OMNI_F32_RTOL; the bf16
+    teacher-forced logits against f32 on the CPU beside the CPU's own bf16
+    error, and bf16 tokens against f32 (reported). OmniParser has no
+    Pallas kernel, so nothing may launch a port kernel."""
+    t_phase = time.perf_counter()
+    cfg = OmniParserConfig()
+    sw = cfg.swin_config()
+    require(sw.embed_dim == 128 and sw.depths == (2, 2, 18, 2)
+            and sw.window_size == 7 and cfg.d_model == 512
+            and cfg.nhead == 8 and cfg.dec_layers == 4
+            and cfg.dim_feedforward == 2048 and cfg.num_bins == 1000
+            and cfg.pt_seq_length == 1024 and cfg.poly_length == 32
+            and cfg.rec_length == 25 and cfg.max_instances == 128,
+            "not the default OmniParserConfig")
+    v = cfg.vocab()
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    pages = torch.randn(OMNI_PAGES, 640, 640, 3, generator=gen,
+                        device="cuda")
+    model = OmniParser(cfg, seed=0)
+    t0 = time.perf_counter()
+    readable, counts_readable = counted(
+        lambda: readable_omniparser(model, pages))
+    readable["seconds"] = time.perf_counter() - t0
+    state = {k: t.cpu() for k, t in model.state_dict().items()}
+    layers.cast_matmul_weights(model, torch.bfloat16)
+    model.requires_grad_(False)
+    rec = {"phase": "omniparser",
+           "config": "OmniParserConfig(): Swin-B + FPN, 3 x 4 decoder "
+                     "layers d 512, 1000 bins", "pages": "640x640 f32",
+           "readable": readable}
+
+    with torch.inference_mode():
+        rec["encode_ms_b1"] = cuda_ms(lambda: model.encode(pages[:1]))
+        rec["encode_ms_b8"] = cuda_ms(lambda: model.encode(pages), iters=5)
+
+        def spot_all():
+            outs, lats = [], []
+            for rnd in range(2):
+                for i in range(OMNI_PAGES):
+                    t0 = time.perf_counter()
+                    out = model.infer_spotting(pages[i:i + 1])
+                    out = {k: t.cpu() for k, t in out.items()}
+                    lats.append((time.perf_counter() - t0) * 1e3)
+                    if rnd:
+                        outs.append(out)
+            return outs, lats
+
+        model.infer_spotting(pages[:1])["rec_tokens"].cpu()     # warm up
+        (outs, lats), counts_spot = counted(spot_all)
+    summaries = [spotting_summary(o, v) for o in outs]
+
+    def pt_steps(out):
+        """The steps of the pt decode up to its EOS, which JAX's while
+        loop runs."""
+        hits = (out["pt_tokens"][0] == v.pt_eos_index).nonzero()
+        return int(hits[0, 0]) + 1 if len(hits) else cfg.pt_seq_length
+    rec.update({
+        "infer_spotting_pages_per_s": 1e3 * len(lats) / sum(lats),
+        "p50_ms_b1": float(np.percentile(lats, 50)),
+        "p99_ms_b1": float(np.percentile(lats, 99)),
+        "latencies_ms": lats,
+        "steps": {"pt": [pt_steps(o) for o in outs],
+                  "poly": cfg.poly_length,
+                  "rec": cfg.rec_length,
+                  "pt_eos_check_every": EOS_CHECK_EVERY},
+        "points": [len(s["points"]) for s in summaries],
+        "strings_first": summaries[0]["strings"][:6],
+        "distinct_strings": len({w for s in summaries
+                                 for w in s["strings"]}),
+        "words_ended_by_eos": sum(sum(s["ended"]) for s in summaries),
+        "words": sum(len(s["ended"]) for s in summaries)})
+    profile_steps("omniparser_profile",
+                  [lambda: model.infer_spotting(pages[:1])[
+                      "rec_tokens"].cpu()],
+                  step_ms=float(np.mean(lats[:OMNI_PAGES])))
+
+    pages_np = [p.cpu().numpy() for p in pages]
+    served, counts_svc = {}, []
+    for n_slots in OMNI_SERVICE_SLOTS:
+        served[n_slots], stats, counts = serve_pages(model, pages_np, n_slots)
+        rec[f"service_{n_slots}_slots"] = stats
+        counts_svc.append(counts)
+        rec[f"bf16_service_{n_slots}_slots_equal_to_infer_spotting_pages"] = (
+            sum(served_equal(r, s) for r, s in zip(served[n_slots],
+                                                   summaries)))
+
+    # page 0 in f32: the card against the CPU, the f32 service against
+    # f32 infer_spotting, and the bf16 teacher-forced logits
+    card32 = OmniParser(cfg, policy=FP32_POLICY)
+    card32.load_state_dict(state)
+    cpu = OmniParser(cfg, policy=FP32_POLICY, device="cpu")
+    cpu.load_state_dict(state)
+    page = pages[:1]
+    with torch.inference_mode():
+        outs32, counts_f32 = counted(lambda: [
+            {k: t.cpu() for k, t in card32.infer_spotting(p[None]).items()}
+            for p in pages])
+        got32 = outs32[0]
+        t0 = time.perf_counter()
+        want = cpu.infer_spotting(page.cpu())
+        cpu_s = time.perf_counter() - t0
+    # every place where the bf16 service left bf16 infer_spotting, with
+    # the f32 gap between the two choices there and the bf16 error
+    divs = {n: [divergence_margin(d, pages[i:i + 1], model, card32)
+                for i, (r, o) in enumerate(zip(served[n], outs))
+                for d in divergences(r, o, v)] for n in served}
+    rec["bf16_service_divergences"] = {n: {
+        "count": {t: sum(d["stage"] == t for d in ds)
+                  for t in ("pt", "poly", "rec")},
+        "largest_gap_over_err": max(
+            [d["f32_gap"] / d["bf16_err"] for d in ds], default=0.0),
+        "smallest_err": min([d["bf16_err"] for d in ds], default=None),
+        "widest": sorted(ds, key=lambda d: d["f32_gap"] / d["bf16_err"])[-2:]}
+        for n, ds in divs.items()}
+    # teacher-forced inputs from the CPU's decode: the pt prompt and
+    # sequence, and instance 0's polygon and word after their prompts
+    pt_seq = torch.cat([torch.as_tensor(v.pt_prompt())[None],
+                        want["pt_tokens"][:, :pt_steps(want)]], 1)
+    xy = want["points"][0, :1]
+    seqs = {"pt": pt_seq,
+            "poly": torch.cat([xy, torch.tensor([[v.poly_sos_index]]),
+                               want["polygons"][0, :1]], 1),
+            "rec": torch.cat([xy, torch.tensor([[v.rec_sos_index]]),
+                              want["rec_tokens"][0, :1]], 1)}
+    seqs = {k: t.to(torch.int32) for k, t in seqs.items()}
+    cpu16 = OmniParser(cfg, device="cpu")
+    cpu16.load_state_dict(state)
+    served32, _, counts_svc32 = serve_pages(card32, pages_np, 8)
+    with torch.inference_mode():
+        tf_cpu = cpu(page.cpu(), seqs)
+        tf_cpu16 = cpu16(page.cpu(), seqs)
+        (tf32, tf16), counts_tf = counted(lambda: (
+            card32(page, {k: t.cuda() for k, t in seqs.items()}),
+            model(page, {k: t.cuda() for k, t in seqs.items()})))
+        got16 = {k: t.cpu() for k, t in model.infer_spotting(page).items()}
+    del cpu, cpu16, card32
+    tok_keys = ("pt_tokens", "points", "instance_valid", "polygons",
+                "rec_tokens")
+    rec_acc = {
+        "f32_tokens_equal_to_cpu": {k: torch.equal(got32[k], want[k])
+                                    for k in tok_keys},
+        "f32_probs_rel_rms_vs_cpu": {
+            k: rel_errors(got32[k], want[k])[0]
+            for k in ("poly_probs", "rec_probs")},
+        "f32_tf_logits_rel_rms_vs_cpu": {
+            k: rel_errors(tf32[k].cpu(), tf_cpu[k])[0] for k in tf_cpu},
+        "bf16_tf_logits_rel_rms_vs_cpu_f32": {
+            k: rel_errors(tf16[k].cpu(), tf_cpu[k])[0] for k in tf_cpu},
+        "cpu_bf16_tf_logits_rel_rms_vs_cpu_f32": {
+            k: rel_errors(tf_cpu16[k], tf_cpu[k])[0] for k in tf_cpu},
+        "bf16_tokens_equal_to_f32": {k: torch.equal(got16[k], want[k])
+                                     for k in tok_keys},
+        "f32_service_equal_to_infer_spotting_pages": sum(
+            served_equal(r, spotting_summary(o, v))
+            for r, o in zip(served32, outs32)),
+        "f32_points": [int(o["instance_valid"].sum()) for o in outs32],
+        "cpu_f32_infer_spotting_s": cpu_s,
+        "tol": {"f32": OMNI_F32_RTOL, "bf16_ratio": OMNI_BF16_RATIO}}
+    rec.update(rec_acc)
+    rec["launches"] = [counts_readable, counts_spot, *counts_svc, counts_f32,
+                       counts_svc32, counts_tf]
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    del model
+    torch.cuda.empty_cache()
+    require(all(c == {} for c in rec["launches"]),
+            f"OmniParser launched a port kernel: {rec['launches']}")
+    require(all(bool(torch.isfinite(o[k]).all()) for o in outs
+                for k in ("poly_probs", "rec_probs")),
+            "OmniParser probabilities not finite")
+    # the readable weights must give pages with different point counts,
+    # words that differ and words ended by EOS, or the comparisons below
+    # hold nothing
+    require(len(set(rec["points"])) > 1
+            and all(OMNI_POINTS[0] <= n <= OMNI_POINTS[1]
+                    for n in rec["points"])
+            and rec["distinct_strings"] >= 2
+            and 0 < rec["words_ended_by_eos"] < rec["words"],
+            f"OmniParser's check pages decode nothing worth comparing: "
+            f"{rec}")
+    require(all(rec_acc["f32_tokens_equal_to_cpu"].values())
+            and all(e <= OMNI_F32_RTOL for e in
+                    rec_acc["f32_probs_rel_rms_vs_cpu"].values())
+            and all(e <= OMNI_F32_RTOL for e in
+                    rec_acc["f32_tf_logits_rel_rms_vs_cpu"].values())
+            and rec_acc["f32_service_equal_to_infer_spotting_pages"]
+            == OMNI_PAGES,
+            f"OmniParser f32 on the card disagrees with the CPU: {rec_acc}")
+    require(all(rec_acc["bf16_tf_logits_rel_rms_vs_cpu_f32"][k]
+                <= OMNI_BF16_RATIO
+                * rec_acc["cpu_bf16_tf_logits_rel_rms_vs_cpu_f32"][k]
+                for k in tf_cpu),
+            f"OmniParser bf16 logits off: {rec_acc}")
+    require(all(len(res) == OMNI_PAGES and all(
+        len(r["polygons"]) == len(r["points"]) == len(r["rec_tokens"])
+        for r in res) for res in served.values()),
+        f"SpottingService output malformed: "
+        f"{served[OMNI_SERVICE_SLOTS[0]][:1]}")
+    # bf16 rounds differently on the service's batch shapes, so its
+    # results may leave infer_spotting's, but only where two choices lie
+    # within bf16's rounding of each other
+    beyond = [d for ds in divs.values() for d in ds
+              if d["f32_gap"] > 2 * d["bf16_err"]]
+    require(not beyond, f"the bf16 service parts from infer_spotting "
+            f"beyond bf16 rounding: {beyond}")
+
+
 class PlainAttention(torch.autograd.Function):
     """The plain versions of K1 and K4 in f32 on the card, as one autograd
     Function: the reference step of the train phase."""
@@ -2065,6 +2886,12 @@ def main() -> int:
     emit({"card": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda})
 
+    t_start = time.perf_counter()
+    timeline = {}
+
+    def mark(name):
+        timeline[name] = time.perf_counter() - t_start
+
     t0 = time.perf_counter()
     seconds = _kernels.build()
     ptxas = {n: [ln.strip() for ln in log.splitlines()
@@ -2073,7 +2900,9 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "per_kernel_s": seconds, "ptxas": ptxas})
 
+    mark("build")
     golden_replay()
+    mark("golden_replay")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     for B, S, H in ((3, 17, 2), (2, 64, 1), (4, 100, 3), (2, 700, 2)):
@@ -2119,7 +2948,9 @@ def main() -> int:
     require(len(texts) == 4 and all(0.0 <= c <= 1.0 for _, c, _ in texts),
             "recognize() output malformed")
 
+    mark("k1_k2_checks_rec_only")
     _, counts = e2e_spotting(engine)
+    mark("e2e_spotting")
     del engine
     torch.cuda.empty_cache()
 
@@ -2160,12 +2991,19 @@ def main() -> int:
     reseed_offsets(lore, seed=7)
     check_lore_vs_cpu(lore)
     _, lore_counts = lore_tsr(lore)
+    mark("k3_checks_lore")
     del lore
     torch.cuda.empty_cache()
     f32_models_phase()
+    mark("f32_models")
     reference_checkpoints()
+    mark("reference_checkpoints")
     lister_phase()
+    mark("lister")
     levocr_phase()
+    mark("levocr")
+    omniparser_phase()
+    mark("omniparser")
 
     bwd_err = 0.0
     # both sides of the 64-row tiles and of a 16-row short last chunk, one
@@ -2182,7 +3020,9 @@ def main() -> int:
     k4_long = check_attention_bwd(16, 768, 12, gen, time_it=True)
     bwd_err = max(bwd_err, k4["max_abs_err"], k4_long["max_abs_err"])
     torch.cuda.empty_cache()
+    mark("k4_checks")
     k4_repeats_phase(gen)
+    mark("k4_repeats")
     mha_err = 0.0
     for B, S, H in ((3, 17, 2), (2, 300, 3), (1, 1000, 2)):
         mha_err = max(mha_err, check_mha(B, S, H, gen)["max_abs_err"])
@@ -2196,8 +3036,11 @@ def main() -> int:
     mha_err = max(mha_err, k5["max_abs_err"], k5_long["max_abs_err"])
     torch.cuda.empty_cache()
 
+    mark("k5_checks")
     _, train_counts, host = train_step_phase()
     fit_phase(host)
+    mark("train_fit")
+    emit({"phase": "timeline", "seconds_since_start": timeline})
     torch.cuda.empty_cache()
     print(smi, flush=True)      # again beside the summary, for short tails
     emit({"kernels": [

@@ -6,11 +6,13 @@ same bits. Needs one H100. Modes:
     python3 k4_repeats.py [--pairs 1000] [--after-phases]
         `chip_smoke.py`'s K4 stress (`k4_stress`): K4 in pairs at the
         MGP-STR-base train shape (B=128, S=257, H=12) on fixed inputs,
-        each call's bits against a first call's, with nothing, other K4
-        shapes (the scaled-q path among them), K1 and K5, or another shape
-        and a synchronize before each pair, beside a side stream of
-        matmuls. With `--after-phases` it first runs `chip_smoke.py`'s
-        f32-model, reference-checkpoint and LISTER phases. One JSON line.
+        each call's bits against a first call's, each call on output and
+        statistics memory filled with 0xFF bytes first (NaN wherever K4
+        leaves an element unwritten), with nothing, other K4 shapes (the
+        scaled-q path among them), K1 and K5, or another shape and a
+        synchronize before each pair, beside a side stream of matmuls.
+        With `--after-phases` it first runs `chip_smoke.py`'s f32-model,
+        reference-checkpoint and LISTER phases. One JSON line.
     python3 k4_repeats.py --fresh 12 --pairs 100
         the same in 12 fresh processes, one after another (the first calls
         of a process on a cold card), and their sum.
@@ -25,7 +27,8 @@ same bits. Needs one H100. Modes:
         another tree), so two trees compare in one call.
 
 Every mode prints the card's name and power limit first; the counting
-modes exit 1 when any call differs, `--sass` when any hazard is found.
+modes exit 1 when any call differs or holds a non-finite element,
+`--sass` when any hazard is found.
 """
 
 import argparse
@@ -190,12 +193,12 @@ def pairs_mode(args):
     gen = torch.Generator(device="cuda").manual_seed(0)
     rec = chip_smoke.k4_stress(gen, args.pairs)
     print(json.dumps(rec), flush=True)
-    return 1 if rec["calls_differing"] else 0
+    return 1 if rec["calls_differing"] or rec["calls_nonfinite"] else 0
 
 
 def fresh_mode(args):
     t0 = time.perf_counter()
-    calls, differing, failed = 0, 0, 0
+    calls, differing, nonfinite, failed = 0, 0, 0, 0
     for k in range(args.fresh):
         cmd = [sys.executable, os.path.abspath(__file__), "--pairs",
                str(args.pairs)]
@@ -205,14 +208,16 @@ def fresh_mode(args):
                 rec = json.loads(ln)
                 calls += rec["calls"]
                 differing += rec["calls_differing"]
+                nonfinite += rec["calls_nonfinite"]
         failed += p.returncode not in (0, 1)
         if p.returncode not in (0, 1):
             print(p.stdout[-2000:], p.stderr[-2000:], flush=True)
     print(json.dumps({"fresh_processes": args.fresh, "calls": calls,
                       "calls_differing": differing,
+                      "calls_nonfinite": nonfinite,
                       "processes_failed": failed,
                       "seconds": time.perf_counter() - t0}), flush=True)
-    return 1 if differing or failed else 0
+    return 1 if differing or nonfinite or failed else 0
 
 
 def time_mode():

@@ -97,13 +97,16 @@ def assert_same_state(got, want):
 
 def test_chip_smoke_golden_configs_are_the_tests():
     import test_torch_levocr
+    import test_torch_omniparser
     assert chip_smoke.GOLDEN_MGP_STR == MGP_CFG
     assert chip_smoke.GOLDEN_DLASEG == DLA_CFG
     assert chip_smoke.GOLDEN_LISTER == LISTER_CFG
     assert chip_smoke.GOLDEN_LEVOCR == test_torch_levocr.GOLDEN_CFG
+    assert (chip_smoke.GOLDEN_OMNIPARSER
+            == test_torch_omniparser.golden_configs()[1])
     assert chip_smoke.GOLDEN_TOL == {
         f: G.TOLERANCES[f][0] for f in ("mgp_str", "lore", "lister",
-                                        "levocr")}
+                                        "levocr", "omniparser")}
 
 
 @pytest.mark.parametrize("wrap", ["model", "state_dict", "net", None])

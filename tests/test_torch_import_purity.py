@@ -22,7 +22,9 @@ def test_port_imports_without_jax():
     assert f"{PKG}.ops.attention" in modules
     assert f"{PKG}.engine.checkpoint" in modules
     assert f"{PKG}.codecs.subword" in modules
-    for m in ("models.abinet", "models.levocr", "ops.levenshtein"):
+    for m in ("models.abinet", "models.levocr", "ops.levenshtein",
+              "codecs.coords", "models.swin", "models.omniparser",
+              "engine.serving", "eval.spotting_eval"):
         assert f"{PKG}.{m}" in modules
     code = textwrap.dedent(f"""
         import importlib, sys

@@ -597,3 +597,116 @@ def test_k4_many_pairs_repeat(gen):
             flags.append((fused_qkv_attention_bwd(qkv, dout, 12)
                           != ref).any())
     assert int(torch.stack(flags).sum()) == 0
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4", "k4_scaled",
+                                    "k5"])
+def test_kernels_write_every_element_of_poisoned_memory(gen, kernel):
+    """Each kernel's output and scratch memory filled with 0xFF bytes (NaN
+    in f32 and bf16, -1 in int32) before the call, through chip_smoke's
+    `poisoned`: the output lands in the poisoned blocks and holds no
+    non-finite element or out-of-range id, at shapes with partial last
+    tiles (S=257 of 64-row tiles, a last vocab chunk, pixel rows off the
+    tile)."""
+    import chip_smoke as cs
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    if kernel == "k1":
+        qkv = randn(3, 257, 3 * 128)
+        fn = lambda: fused_qkv_attention(qkv, 2)
+    elif kernel in ("k4", "k4_scaled"):
+        qkv, dout = randn(3, 257, 3 * 192), randn(3, 257, 192)
+        scale = 0.1 if kernel == "k4_scaled" else None
+        fn = lambda: fused_qkv_attention_bwd(qkv, dout, 3, scale)
+    elif kernel == "k5":
+        q, k, v = randn(2, 257, 3, 3, 64).unbind(2)
+        fn = lambda: mha_short_seq(q, k, v)
+    elif kernel == "k2":
+        tok, w, b = randn(129, 768), randn(2304, 768) * 0.05, randn(2304)
+        fn = lambda: matmul_greedy_decode(tok, w, b, 2200)
+    else:
+        x, off = randn(2, 37, 40, 200), randn(2, 37, 40, 9, 2) * 2
+        mask, wt = randn(2, 37, 40, 9).sigmoid(), randn(3, 3, 200, 100) * 0.05
+        bias = randn(100)
+        fn = lambda: deform_conv2d(x, off, mask, wt, bias)
+    out, in_poison = cs.poisoned(fn)
+    assert in_poison
+    outs = out if isinstance(out, tuple) else (out,)
+    if kernel == "k2":
+        ids, pmax = outs
+        assert bool(((ids >= 0) & (ids < 2200)).all())
+        assert bool(((pmax > 0) & (pmax <= 1)).all())
+    else:
+        assert bool(torch.isfinite(outs[0]).all())
+        assert torch.equal(outs[0], fn())
+
+
+def omniparser_tiny():
+    from advancedliteratemachinery_tpu_torch.models.omniparser import (
+        OmniParserConfig)
+    from advancedliteratemachinery_tpu_torch.models.swin import SwinConfig
+    return OmniParserConfig(
+        swin=SwinConfig(embed_dim=16, depths=(2, 2, 2, 2),
+                        num_heads=(1, 2, 2, 2), window_size=7),
+        d_model=64, nhead=2, dec_layers=2, dim_feedforward=128,
+        max_position_embeddings=128, pt_seq_length=32, poly_length=8,
+        rec_length=6, max_instances=8)
+
+
+def test_omniparser_f32_on_card_matches_cpu(gen, no_tf32):
+    """OmniParser under FP32_POLICY on the card (TF32 off) against the same
+    weights on the CPU, at a small width (Swin embed 16, decoder d 64) on
+    four 100 x 76 pages, with the weights made readable by chip_smoke's
+    `readable_omniparser`: equal tokens, probabilities within chip_smoke's
+    OMNI_F32_RTOL (relative RMS), and no port kernel launched."""
+    import chip_smoke as cs
+    from advancedliteratemachinery_tpu_torch.models.omniparser import (
+        OmniParser)
+
+    cfg = omniparser_tiny()
+    ref = OmniParser(cfg, policy=FP32_POLICY, device="cpu", seed=2)
+    pages = torch.randn(4, 100, 76, 3, generator=torch.Generator()
+                        .manual_seed(0))
+    cs.readable_omniparser(ref, pages, (0, 8))
+    model = OmniParser(cfg, policy=FP32_POLICY)
+    model.load_state_dict(ref.state_dict())
+    before = dict(_kernels.LAUNCHES)
+    for p in pages:
+        with torch.inference_mode():
+            got = model.infer_spotting(p[None].cuda())
+            want = ref.infer_spotting(p[None])
+        for k, w in want.items():
+            if w.dtype == torch.float32:
+                assert _rel(got[k].cpu(), w) <= cs.OMNI_F32_RTOL, k
+            else:
+                assert torch.equal(got[k].cpu(), w), k
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHES) == before
+
+
+def test_spotting_service_on_card(gen, no_tf32):
+    """`SpottingService` on the card, 3 pages submitted at once, against
+    the same model's infer_spotting on the card, page by page (f32)."""
+    import chip_smoke as cs
+    from advancedliteratemachinery_tpu_torch.engine.serving import (
+        SpottingService)
+    from advancedliteratemachinery_tpu_torch.models.omniparser import (
+        OmniParser)
+
+    cfg = omniparser_tiny()
+    model = OmniParser(cfg, policy=FP32_POLICY, seed=2)
+    pages = torch.randn(3, 100, 76, 3, generator=gen, device="cuda")
+    cs.readable_omniparser(model, pages, (0, 8))
+    with torch.inference_mode():
+        want = [cs.spotting_summary(model.infer_spotting(p[None]),
+                                    cfg.vocab()) for p in pages]
+    svc = SpottingService(model, n_slots=2).start()
+    try:
+        got = svc([p.cpu().numpy() for p in pages], timeout=120)
+    finally:
+        svc.stop()
+    for g, w in zip(got, want):
+        assert g["points"].tolist() == w["points"]
+        assert [list(p) for p in g["polygons"]] == w["polygons"]
+        assert [list(r) for r in g["rec_tokens"]] == w["words"]
