@@ -12,11 +12,12 @@ The port keeps torch layouts, so most tensors carry over as they are; the
 maps are where the port's own layout differs: the grouped 1x1 convs of
 MGP-STR's TokenLearners ([G, I/G, O/G]), its zero-padded heads, the DCN
 offset channels (split dy | dx | mask, not interleaved), the bilinear up
-kernels ([2f, 2f, C]), the 1x1 convs that are Linear layers here, and the
-navigator's [1, C, C] weight. A shape that disagrees with the module raises
-`ValueError` naming the key and both shapes; a tensor the module needs and
-the checkpoint lacks raises `KeyError` naming it; checkpoint tensors left
-unused are reported with a warning, buffers (`_BUFFER_SUFFIXES`) excepted.
+kernels ([2f, 2f, C]; LORE's and DocXLayout's necks), the 1x1 convs that
+are Linear layers here, and the navigator's [1, C, C] weight. A shape that
+disagrees with the module raises `ValueError` naming the key and both
+shapes; a tensor the module needs and the checkpoint lacks raises
+`KeyError` naming it; checkpoint tensors left unused are reported with a
+warning, buffers (`_BUFFER_SUFFIXES`) excepted.
 """
 
 from __future__ import annotations
@@ -247,7 +248,7 @@ def import_mgp_str(sd: Dict[str, torch.Tensor], model: nn.Module
     return m.finish()
 
 
-# ---------------- LORE-TSR: DLASeg and the Processor ----------------
+# ---------------- LORE-TSR and DocXLayout: DLASeg, DLASegV0, Processor ----
 
 
 def dcn_offset_perm(K: int) -> torch.Tensor:
@@ -259,38 +260,52 @@ def dcn_offset_perm(K: int) -> torch.Tensor:
     return torch.cat([2 * k, 2 * k + 1, 2 * K + k])
 
 
+def _dla_trunk(m: "_Mapper", base: nn.Module, dst: str) -> None:
+    """The DLA-34 trunk (reference DLA :224: `base.base_layer`,
+    `base.level0`-`level5`, ConvBnRelu as a Sequential of conv and bn)
+    into the port's `DLA` at `dst`."""
+    from advancedliteratemachinery_tpu_torch.models.dla import BasicBlock
+
+    p = m.p
+
+    def cbr(d, conv, bn):          # ConvBnRelu: conv (no bias) + bn
+        m.put(f"{d}.conv.weight", p[f"{conv}.weight"])
+        m.bn(f"{d}.bn", bn)
+
+    def tree(mod, d, src):
+        if isinstance(mod, BasicBlock):
+            cbr(f"{d}.conv1", f"{src}.conv1", f"{src}.bn1")
+            cbr(f"{d}.conv2", f"{src}.conv2", f"{src}.bn2")
+            return
+        if mod.project is not None:
+            cbr(f"{d}.project", f"{src}.project.0", f"{src}.project.1")
+        if mod.levels == 1:
+            cbr(f"{d}.root.conv", f"{src}.root.conv", f"{src}.root.bn")
+        tree(mod.tree1, f"{d}.tree1", f"{src}.tree1")
+        tree(mod.tree2, f"{d}.tree2", f"{src}.tree2")
+
+    cbr(f"{dst}.base_layer", "base.base_layer.0", "base.base_layer.1")
+    for lv in range(2):
+        cbr(f"{dst}.level{lv}", f"base.level{lv}.0", f"base.level{lv}.1")
+    for lv in range(2, 6):
+        tree(getattr(base, f"level{lv}"), f"{dst}.level{lv}",
+             f"base.level{lv}")
+
+
+def _up_kernel(w: torch.Tensor) -> torch.Tensor:
+    """Grouped ConvTranspose2d weight [C, 1, k, k] → the port's
+    UpsampleBilinear kernel [k, k, C]."""
+    return w[:, 0].permute(1, 2, 0)
+
+
 def import_dla(sd: Dict[str, torch.Tensor],
                model: nn.Module) -> Dict[str, torch.Tensor]:
     """A LORE-TSR / CenterNet DLASeg (ctdet) checkpoint (reference
     pose_dla_dcn.py: DLA :224, DLAUp :390, IDAUp :361, DeformConv :346,
     heads :443) into the port's `DLASeg`, BatchNorm statistics included."""
-    from advancedliteratemachinery_tpu_torch.models.dla import BasicBlock
-
     m = _Mapper(sd, model, "import_dla")
     p = m.p
-
-    def cbr(dst, conv, bn):        # ConvBnRelu: conv (no bias) + bn
-        m.put(f"{dst}.conv.weight", p[f"{conv}.weight"])
-        m.bn(f"{dst}.bn", bn)
-
-    def tree(mod, dst, src):
-        if isinstance(mod, BasicBlock):
-            cbr(f"{dst}.conv1", f"{src}.conv1", f"{src}.bn1")
-            cbr(f"{dst}.conv2", f"{src}.conv2", f"{src}.bn2")
-            return
-        if mod.project is not None:
-            cbr(f"{dst}.project", f"{src}.project.0", f"{src}.project.1")
-        if mod.levels == 1:
-            cbr(f"{dst}.root.conv", f"{src}.root.conv", f"{src}.root.bn")
-        tree(mod.tree1, f"{dst}.tree1", f"{src}.tree1")
-        tree(mod.tree2, f"{dst}.tree2", f"{src}.tree2")
-
-    cbr("base.base_layer", "base.base_layer.0", "base.base_layer.1")
-    for lv in range(2):
-        cbr(f"base.level{lv}", f"base.level{lv}.0", f"base.level{lv}.1")
-    for lv in range(2, 6):
-        tree(getattr(model.base, f"level{lv}"), f"base.level{lv}",
-             f"base.level{lv}")
+    _dla_trunk(m, model.base, "base")
 
     def dcn_block(dst, src):
         w = p[f"{src}.conv.weight"]
@@ -308,7 +323,7 @@ def import_dla(sd: Dict[str, torch.Tensor],
             dcn_block(f"{name}.node_{j}", f"{name}.node_{j}")
             if mod.up_factors[j] != 1:    # factor-1 ups have no kernel
                 m.put(f"{name}.up_{j}.kernel",
-                      p[f"{name}.up_{j}.weight"][:, 0].permute(1, 2, 0))
+                      _up_kernel(p[f"{name}.up_{j}.weight"]))
 
     for i in range(model.dla_up.n):
         ida(getattr(model.dla_up, f"ida_{i}"), f"dla_up.ida_{i}")
@@ -316,6 +331,40 @@ def import_dla(sd: Dict[str, torch.Tensor],
     for head, _ in model.config.heads:
         m.copy(f"{head}_conv1", f"{head}.0")
         m.copy(f"{head}_out", f"{head}.2")
+    return m.finish()
+
+
+def import_docxlayout(sd: Dict[str, torch.Tensor], model: nn.Module,
+                      prefix: str = "") -> Dict[str, torch.Tensor]:
+    """The released DocXLayout checkpoint (DocXLayout_231012.pth; reference
+    DocumentUnderstanding/DocXLayout/models/networks/dlav0_subfield.py
+    DLASeg) into the port's `DocXLayout`: the DLA trunk as `import_dla`
+    reads it, the v0 neck's `dla_up.ida_{i}.{proj,node}_{j}.{0,1}.*`
+    (conv, BatchNorm) and `up_{j}.weight` (the grouped transposed conv),
+    and the heads `{head}.{0,2}.*`. Keys under `prefix` only, the prefix
+    removed."""
+    m = _Mapper(sd, model, "import_docxlayout", prefix)
+    p = m.p
+    seg = model.backbone
+    _dla_trunk(m, seg.base, "backbone.base")
+    for i in range(seg.dla_up.n):
+        mod = getattr(seg.dla_up, f"ida_{i}")
+        name = f"dla_up.ida_{i}"
+        for j in range(mod.n):
+            if mod.projected[j]:
+                m.put(f"backbone.{name}.proj_{j}.conv.weight",
+                      p[f"{name}.proj_{j}.0.weight"])
+                m.bn(f"backbone.{name}.proj_{j}.bn", f"{name}.proj_{j}.1")
+            if mod.up_factors[j] != 1:
+                m.put(f"backbone.{name}.up_{j}.kernel",
+                      _up_kernel(p[f"{name}.up_{j}.weight"]))
+            if j:
+                m.put(f"backbone.{name}.node_{j}.conv.weight",
+                      p[f"{name}.node_{j}.0.weight"])
+                m.bn(f"backbone.{name}.node_{j}.bn", f"{name}.node_{j}.1")
+    for head, _ in seg.config.heads:
+        m.copy(f"backbone.{head}_conv1", f"{head}.0")
+        m.copy(f"backbone.{head}_out", f"{head}.2")
     return m.finish()
 
 

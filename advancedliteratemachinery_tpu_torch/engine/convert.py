@@ -2,8 +2,10 @@
 
 `flax_state_dict` takes a flax parameter tree (nested dicts of arrays:
 `params`, and `batch_stats` for models with BatchNorm) and returns a state
-dict for the port's module of the same architecture. The port's submodules
-carry the flax names, so only the leaves change:
+dict for the port's module of the same architecture (DocXLayout's tree, for
+one, under its `backbone` with the v0 neck's `proj_{i}`/`up_{i}`/`node_{i}`
+and their BatchNorm `batch_stats`). The port's submodules carry the flax
+names, so only the leaves change:
 
 - conv kernel HWIO → `weight` OIHW;
 - Dense kernel [in, out] → `Linear.weight` [out, in];

@@ -37,7 +37,8 @@ from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.models.layers import (
     cast_matmul_weights, linear)
 from advancedliteratemachinery_tpu_torch.models.levocr import LevtDictionary
-from advancedliteratemachinery_tpu_torch.ops.image import normalize_crops
+from advancedliteratemachinery_tpu_torch.ops.image import (
+    as_device_tensor, normalize_crops)
 from advancedliteratemachinery_tpu_torch.ops.vocab_decode import (
     matmul_greedy_decode, supports_fused_decode)
 
@@ -150,7 +151,7 @@ class MGPSTRInference:
     def __call__(self, images_u8) -> Dict[str, np.ndarray]:
         """images_u8: [B, 32, 128, 3] uint8 (numpy or tensor) → dict of
         numpy arrays."""
-        x = torch.as_tensor(np.asarray(images_u8)).to(self.device)
+        x = as_device_tensor(images_u8, self.device)
         return {k: v.cpu().numpy() for k, v in self.run(x).items()}
 
     def recognize(self, images_u8):
@@ -207,7 +208,7 @@ class LISTERInference:
     def recognize(self, images_u8):
         """uint8 crops (numpy or tensor) → list of (text, confidence,
         "lister")."""
-        x = torch.as_tensor(np.asarray(images_u8)).to(self.device)
+        x = as_device_tensor(images_u8, self.device)
         ids, conf = self.run(x)
         texts = self.codec.decode(ids.cpu().numpy())
         return [(t, float(c), "lister") for t, c in zip(texts, conf.cpu())]
@@ -242,7 +243,7 @@ class LevOCRInference:
     def recognize(self, images_u8):
         """uint8 crops (numpy or tensor) → list of (text, confidence,
         "levocr")."""
-        x = torch.as_tensor(np.asarray(images_u8)).to(self.device)
+        x = as_device_tensor(images_u8, self.device)
         tokens, scores = self.run(x)
         texts = self.dictionary.decode(tokens.cpu().numpy())
         s = scores.cpu().numpy().astype(np.float64)

@@ -38,7 +38,8 @@ from advancedliteratemachinery_tpu_torch.models.layers import (
 from advancedliteratemachinery_tpu_torch.models.omniparser import NEG
 
 # how long a decode server's worker waits on its queue while slots are
-# live, and how long an item waits for co-travelers into its batch
+# live, and how long a page waits for co-travelers into the service's
+# encoder batch
 POLL_S = 1e-3
 BATCH_WAIT_MS = 3.0
 # the most requests one refill wave prefills together
@@ -52,13 +53,16 @@ BURST_TICKS = 8
 
 class ContinuousBatcher:
     def __init__(self, infer_fn: Callable[[np.ndarray], Sequence],
-                 batch_size: int, item_shape):
-        """infer_fn: float32 [batch_size, *item_shape] → sequence of
-        per-item results. Requests smaller than batch_size wait up to
-        BATCH_WAIT_MS for co-travelers, then go padded."""
+                 batch_size: int, item_shape,
+                 max_wait_ms: float = 5.0, dtype=np.uint8):
+        """infer_fn: [batch_size, *item_shape] array of `dtype` → sequence
+        of per-item results. Requests smaller than batch_size wait up to
+        max_wait_ms for co-travelers, then go padded with zeros."""
         self.infer_fn = infer_fn
         self.batch_size = batch_size
         self.item_shape = tuple(item_shape)
+        self.max_wait = max_wait_ms / 1000.0
+        self.dtype = dtype
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._loop, daemon=True)
@@ -82,17 +86,17 @@ class ContinuousBatcher:
         if item.shape != self.item_shape:
             raise ValueError(f"item shape {item.shape} != {self.item_shape}")
         fut: Future = Future()
-        self._q.put((np.asarray(item, np.float32), fut))
+        self._q.put((np.asarray(item, self.dtype), fut))
         return fut
 
     def _collect(self) -> List:
         """Block for the first item, then soak up to batch_size within
-        BATCH_WAIT_MS."""
+        max_wait."""
         first = self._q.get()
         if first is None or self._stop.is_set():
             return []
         batch = [first]
-        deadline = time.perf_counter() + BATCH_WAIT_MS / 1000.0
+        deadline = time.perf_counter() + self.max_wait
         while len(batch) < self.batch_size:
             timeout = deadline - time.perf_counter()
             if timeout <= 0:
@@ -106,16 +110,20 @@ class ContinuousBatcher:
             batch.append(nxt)
         return batch
 
+    def _batch(self, items: List[np.ndarray]) -> np.ndarray:
+        """The items, zero-padded to [batch_size, *item_shape]."""
+        buf = np.zeros((self.batch_size, *self.item_shape), self.dtype)
+        for i, item in enumerate(items):
+            buf[i] = item
+        return buf
+
     def _loop(self) -> None:
         while not self._stop.is_set():
             pairs = self._collect()
             if not pairs:
                 continue
-            buf = np.zeros((self.batch_size, *self.item_shape), np.float32)
-            for i, (item, _) in enumerate(pairs):
-                buf[i] = item
             try:
-                results = self.infer_fn(buf)
+                results = self.infer_fn(self._batch([i for i, _ in pairs]))
             except Exception as e:  # fan the error out to all waiters
                 for _, fut in pairs:
                     fut.set_exception(e)
@@ -368,6 +376,13 @@ class SpottingDecodeServer:
         with torch.inference_mode():
             self._loop()
 
+    def _batch(self, items: List[np.ndarray]) -> np.ndarray:
+        """The items, zero-padded to [batch_size, *item_shape]."""
+        buf = np.zeros((self.batch_size, *self.item_shape), self.dtype)
+        for i, item in enumerate(items):
+            buf[i] = item
+        return buf
+
     def _loop(self) -> None:
         """Tick pipeline, depth 2: the host's read of tick t's tokens
         overlaps with tick t+1 already queued on the device. A slot
@@ -502,7 +517,8 @@ class SpottingService:
                             for i in range(batch.shape[0])]
 
                 self._encode_batcher = ContinuousBatcher(
-                    run, self._encode_batch, image.shape).start()
+                    run, self._encode_batch, image.shape,
+                    max_wait_ms=BATCH_WAIT_MS, dtype=np.float32).start()
         return self._encode_batcher.submit(image)
 
     def submit(self, image: np.ndarray) -> Future:

@@ -8,6 +8,14 @@ the threshold head exists for training. The JAX package's space-to-depth
 stem is a TPU rewrite of an ordinary 7x7 stride-2 convolution over the same
 (7, 7, C, F) kernel, and is one `conv2d` here. Pages come in NHWC, as in the
 JAX package, and the network runs in NCHW inside.
+
+`make_db_detect_fn` is the document pipelines' detect function (the JAX
+CLI's `_db_detect_fn`) with one departure: the JAX CLI extracts boxes on
+the host with cv2 contours (`extract_boxes`), which the card's machine
+cannot run, so this one takes `ops/cc_extract.py` `extract_boxes_device`,
+the JAX package's own device path, with no cap on the boxes (as
+`extract_boxes` has none). The two give different box sets where
+components spiral (see `ops/cc_extract.py`).
 """
 
 from __future__ import annotations
@@ -15,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -24,6 +33,10 @@ from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy)
 from advancedliteratemachinery_tpu_torch.models.layers import (
     BN_EPS, batch_norm, conv2d, init_params)
+from advancedliteratemachinery_tpu_torch.ops.cc_extract import (
+    extract_boxes_device)
+from advancedliteratemachinery_tpu_torch.ops.image import (
+    as_device_tensor, resize_linear_u8)
 
 
 class ConvBNRelu(nn.Module):
@@ -134,3 +147,33 @@ class DBDetector(nn.Module):
         h = F.relu(batch_norm(h, self.prob_bn1).to(c))
         h = F.pixel_shuffle(conv2d(h, self.prob_up2, c), 2)       # full, 1ch
         return {"prob": torch.sigmoid(h.float()).permute(0, 2, 3, 1)}
+
+
+# the detect function's page size (h, w), the JAX CLI's
+DETECT_HW = (640, 640)
+
+
+def make_db_detect_fn(model: DBDetector, box_thresh: float = 0.3):
+    """→ detect_fn(image_u8) for `pipelines.modules.TextDetection`: the page
+    resized to DETECT_HW on the model's device (cv2's INTER_LINEAR),
+    scaled to [0, 1] in float32 → the probability map →
+    `extract_boxes_device` (every component) → (quads [N, 8]
+    float32 in page pixels, scores [N] float32), by score descending."""
+    device = next(model.parameters()).device
+    H, W = DETECT_HW
+
+    @torch.inference_mode()
+    def detect(image_u8):
+        page = as_device_tensor(image_u8, device)
+        h, w = page.shape[:2]
+        x = resize_linear_u8(page[None], (H, W)).float() / 255.0
+        prob = model(x)["prob"][..., 0]
+        quads, scores, valid = extract_boxes_device(
+            prob, box_thresh=box_thresh, max_boxes=None)
+        keep = valid[0]
+        quads = quads[0][keep].reshape(-1, 8).cpu().numpy()
+        scores = scores[0][keep].cpu().numpy()
+        quads = quads * np.tile([w / W, h / H], 4)
+        return quads.astype(np.float32), scores.astype(np.float32)
+
+    return detect

@@ -1,6 +1,7 @@
 """DLA-34 trunk with a deformable-conv upsampling neck and CenterNet heads
-(port of `advancedliteratemachinery_tpu/models/dla.py`, the DLASeg half;
-reference LORE-TSR pose_dla_dcn.py).
+(port of `advancedliteratemachinery_tpu/models/dla.py`: DLASeg, reference
+LORE-TSR pose_dla_dcn.py; and DLASegV0, the plain-conv v0 neck of
+DocXLayout, reference dlav0_subfield.py).
 
 Maps come in and go out NHWC, as in the JAX package. Inside, the network
 runs in NCHW tensors kept in `channels_last` memory, so the NHWC view that
@@ -325,6 +326,130 @@ class DLASeg(nn.Module):
         feat = self.ida_up(pyramid[:cfg.last_level - self.first])[-1]
         out = {}
         for head, _ in cfg.heads:
+            h = F.relu(conv2d(feat, getattr(self, f"{head}_conv1"), c))
+            h = conv2d(h, getattr(self, f"{head}_out"), c)
+            out[head] = h.float().permute(0, 2, 3, 1)
+        return out
+
+
+# ---------------- DLA-v0 neck (DocXLayout) ----------------
+# Reference DocumentUnderstanding/DocXLayout/models/networks/
+# dlav0_subfield.py. Unlike the DCN neck above there is no deformable conv:
+# every input level with another width is projected (conv1x1 + BN + ReLU,
+# the first level included), upsampled by the fixed-bilinear transposed
+# conv, and each node is a conv3x3 + BN + ReLU over the channel
+# concatenation of the running aggregate with the next level. `proj_{i}`
+# and `node_{i}` are the JAX package's ProjV0 and NodeV0 (a `conv` and a
+# float32 `bn`), which is `ConvBnRelu`.
+
+
+class IDAUpV0(nn.Module):
+    """dlav0 IDAUp: project and upsample every level, then chain the
+    concat nodes. Returns (the final aggregate, the node outputs)."""
+
+    def __init__(self, out_channels: int, in_channels: Sequence[int],
+                 up_factors: Sequence[int], policy: Policy = DEFAULT_POLICY):
+        super().__init__()
+        self.n = len(in_channels)
+        self.projected = [c != out_channels for c in in_channels]
+        self.up_factors = [int(f) for f in up_factors]
+        for i, (c, f) in enumerate(zip(in_channels, self.up_factors)):
+            if self.projected[i]:
+                self.add_module(f"proj_{i}", ConvBnRelu(c, out_channels, 1,
+                                                        policy=policy))
+            if f != 1:
+                self.add_module(f"up_{i}", UpsampleBilinear(f, out_channels))
+        for i in range(1, self.n):
+            self.add_module(f"node_{i}", ConvBnRelu(2 * out_channels,
+                                                    out_channels, 3,
+                                                    policy=policy))
+
+    def forward(self, layers: Sequence[torch.Tensor]):
+        layers = list(layers)
+        for i in range(self.n):
+            x = layers[i]
+            if self.projected[i]:
+                x = getattr(self, f"proj_{i}")(x)
+            if self.up_factors[i] != 1:
+                x = getattr(self, f"up_{i}")(x)
+            layers[i] = x
+        x = layers[0]
+        ys = []
+        for i in range(1, self.n):
+            x = getattr(self, f"node_{i}")(torch.cat([x, layers[i]], dim=1))
+            ys.append(x)
+        return x, ys
+
+
+class DLAUpV0(nn.Module):
+    """dlav0 DLAUp: aggregate the pyramid down to the first level's
+    resolution; returns the final aggregate map."""
+
+    def __init__(self, channels: Sequence[int],
+                 policy: Policy = DEFAULT_POLICY):
+        super().__init__()
+        channels = list(channels)
+        scales = [2 ** i for i in range(len(channels))]
+        in_ch = list(channels)
+        self.n = len(channels) - 1
+        for i in range(self.n):
+            j = -i - 2
+            self.add_module(f"ida_{i}", IDAUpV0(
+                channels[j], in_ch[j:], [s // scales[j] for s in scales[j:]],
+                policy))
+            scales[j + 1:] = [scales[j]] * len(scales[j + 1:])
+            in_ch[j + 1:] = [channels[j]] * len(in_ch[j + 1:])
+
+    def forward(self, layers: Sequence[torch.Tensor]) -> torch.Tensor:
+        layers = list(layers)
+        x = layers[-1]
+        for i in range(self.n):
+            j = -i - 2
+            x, ys = getattr(self, f"ida_{i}")(layers[j:])
+            layers[j + 1:] = ys
+        return x
+
+
+class DLASegV0(nn.Module):
+    """dlav0_subfield DLASeg: DLA trunk → DLAUpV0 → per-task heads
+    (conv3x3 + ReLU + conv1x1; the hm* heads' bias starts at -2.19). Built
+    on `device` (the GPU unless `device="cpu"`) with random weights from
+    `seed`; load real weights with `engine.convert` or
+    `engine.checkpoint.import_docxlayout`."""
+
+    def __init__(self, config: DLASegConfig = DLASegConfig(),
+                 policy: Policy = DEFAULT_POLICY,
+                 device: Union[str, torch.device, None] = None,
+                 seed: int = 0):
+        super().__init__()
+        device = resolve_device(device)
+        self.config = cfg = config
+        self.policy = policy
+        self.first = first = int(math.log2(cfg.down_ratio))
+        ch = cfg.dla.channels
+        self.base = DLA(cfg.dla, policy)
+        self.dla_up = DLAUpV0(ch[first:], policy)
+        for head, classes in cfg.heads:
+            self.add_module(f"{head}_conv1", nn.Conv2d(
+                ch[first], cfg.head_conv, 3, padding=1))
+            self.add_module(f"{head}_out", nn.Conv2d(cfg.head_conv, classes,
+                                                     1))
+        init_params(self, torch.Generator().manual_seed(seed))
+        for m in self.modules():
+            if isinstance(m, UpsampleBilinear):
+                m.reset_bilinear()
+        for head, _ in cfg.heads:
+            if "hm" in head:
+                nn.init.constant_(getattr(self, f"{head}_out").bias, HM_BIAS)
+        self.to(device)
+
+    def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """images [B, H, W, C] → {head: [B, H/4, W/4, classes] float32}."""
+        c = self.policy.compute_dtype
+        x = images.to(c).permute(0, 3, 1, 2)        # channels_last NCHW
+        feat = self.dla_up(self.base(x)[self.first:])
+        out = {}
+        for head, _ in self.config.heads:
             h = F.relu(conv2d(feat, getattr(self, f"{head}_conv1"), c))
             h = conv2d(h, getattr(self, f"{head}_out"), c)
             out[head] = h.float().permute(0, 2, 3, 1)

@@ -10,8 +10,9 @@ transformer and a stacker transformer, regress 4 logical coordinates
 (row_start, row_end, col_start, col_end) per cell.
 
 The attention is plain torch, as it is an einsum outside any Pallas kernel
-in the JAX package. Losses, training targets and `make_table_predict_fn`
-are not ported yet.
+in the JAX package. `make_table_predict_fn` gives the
+`pipelines.modules.TableStructureRecognition` callable. Losses and
+training targets are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -32,6 +34,8 @@ from advancedliteratemachinery_tpu_torch.models.layers import (
     init_params, lecun_normal_, linear)
 from advancedliteratemachinery_tpu_torch.ops.heatmap import (
     corner_decode, ctdet_4ps_decode, sigmoid_clamped)
+from advancedliteratemachinery_tpu_torch.ops.image import (
+    as_device_tensor, resize_linear_u8)
 
 FF_DIM = 2048     # the vendored transformer's fixed feed-forward width
 NORM_EPS = 1e-6
@@ -219,3 +223,33 @@ class LORE(nn.Module):
             res["corners"] = corners["gboxes"]
             res["corner_scores"] = corners["scores"]
         return res
+
+
+def make_table_predict_fn(model: LORE, input_size: int = 512,
+                          down_ratio: int = 4, score_thresh: float = 0.3):
+    """→ predict_fn(image_u8) for
+    `pipelines.modules.TableStructureRecognition`: the page resized to
+    `input_size`² on the model's device (`ops/image.py`
+    `resize_linear_u8`, cv2's INTER_LINEAR), scaled to [0, 1] in float32,
+    `LORE.infer`; then on the host the cells whose score passes
+    `score_thresh`, mapped back by the page's own scale, their logical
+    coordinates through `np.rint` (base_detector.py:180 post_process):
+    {"polygons" [N, 8] float32, "logi_coords" [N, 4] int32}."""
+    device = next(model.parameters()).device
+
+    @torch.inference_mode()
+    def predict(image_u8):
+        page = as_device_tensor(image_u8, device)
+        h, w = page.shape[:2]
+        x = resize_linear_u8(page[None], (input_size, input_size))
+        out = model.infer(x.float() / 255.0)
+        det = out["detections"][0].cpu().numpy()
+        scores = out["scores"][0].cpu().numpy()
+        logic = np.rint(out["logic"][0].cpu().numpy()).astype(np.int32)
+        keep = scores > score_thresh
+        polys = det[keep, :8] * down_ratio
+        polys = polys * np.tile([w / input_size, h / input_size], 4)
+        return {"polygons": polys.astype(np.float32),
+                "logi_coords": logic[keep]}
+
+    return predict

@@ -10,7 +10,9 @@ It matches the JAX device path step for step, not cv2:
    a component that needs more than `cc_iters` traversals (a spiral) splits,
    two components never merge;
 3. roots (label == own index), of which the top `max_boxes` are kept: on a
-   page with more components the smallest flat indices are dropped;
+   page with more components the smallest flat indices are dropped.
+   `max_boxes=None` keeps them all (K = the most roots of any page,
+   rounded up to a multiple of 64, read back to the host once);
 4. per-(component, row) x-extents, from which a coarse-to-fine angle search
    finds the min-area rect exactly for each candidate angle;
 5. score = mean prob over the filled rect; unclip by the DB paper's A·r/L
@@ -27,13 +29,16 @@ the row tables) this port computes the same values with `searchsorted` and
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 _I32_MIN = torch.iinfo(torch.int32).min
 _I32_MAX = torch.iinfo(torch.int32).max
 _BIG = 1e9
+# slots a score pass covers at once: the pass holds a few [P, slots, H*W]
+# temporaries, which bounds their memory for any number of slots
+SCORE_SLOTS = 64
 
 
 def _seg_run_max_scan(lab: torch.Tensor, mask: torch.Tensor,
@@ -118,16 +123,18 @@ def connected_components(mask: torch.Tensor, cc_iters: int = 4
 
 def extract_boxes_device(prob: torch.Tensor, bin_thresh: float = 0.3,
                          box_thresh: float = 0.6, unclip_ratio: float = 1.5,
-                         min_size: int = 3, max_boxes: int = 64,
+                         min_size: int = 3,
+                         max_boxes: Optional[int] = 64,
                          cc_iters: int = 4, n_angles: int = 8,
                          angle_stages: int = 3
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """prob [P, H, W] f32 → (quads [P, K, 4, 2], scores [P, K],
-    valid [P, K] bool) with K = max_boxes; slots sorted by score descending,
-    invalid slots zeroed."""
+    valid [P, K] bool) with K = max_boxes, or with `max_boxes=None` K =
+    every page's components (the most of any page, rounded up to a
+    multiple of 64); slots sorted by score descending, invalid slots
+    zeroed."""
     P, H, W = prob.shape
     HW = H * W
-    K = max_boxes
     dev = prob.device
     prob = prob.float()
 
@@ -136,8 +143,13 @@ def extract_boxes_device(prob: torch.Tensor, bin_thresh: float = 0.3,
 
     # --- component roots: label == own flat index; top-K of them ---
     flat = torch.arange(HW, dtype=torch.int32, device=dev)
-    root_keys = torch.where(lab_flat == flat, lab_flat,
-                            torch.full_like(lab_flat, -1))
+    is_root = lab_flat == flat
+    root_keys = torch.where(is_root, lab_flat, torch.full_like(lab_flat, -1))
+    if max_boxes is None:
+        n_roots = int(is_root.sum(-1).max())
+        K = min(HW, max(64, -(-n_roots // 64) * 64))
+    else:
+        K = max_boxes
     roots = torch.topk(root_keys, K, dim=-1).values              # [P, K] desc
     alive = roots >= 0
 
@@ -218,16 +230,20 @@ def extract_boxes_device(prob: torch.Tensor, bin_thresh: float = 0.3,
     th2 = torch.where(th2 < -half_pi, th2 + math.pi, th2)
     ct2, st2 = torch.cos(th2), torch.sin(th2)
 
-    # --- score: mean prob over the filled rect ---
+    # --- score: mean prob over the filled rect, SCORE_SLOTS at a time ---
     ys = ycoord.float()
-    dx = xcoord[None, None, :] - cx[..., None]                    # [P, K, HW]
-    dy = ys[None, None, :] - cy[..., None]
-    u = dx * ct2[..., None] + dy * st2[..., None]
-    v = -dx * st2[..., None] + dy * ct2[..., None]
-    inside = ((u.abs() <= a2[..., None] / 2 + 0.5)
-              & (v.abs() <= b2[..., None] / 2 + 0.5))
-    ssum = torch.where(inside, prob.reshape(P, 1, HW), 0.0).sum(-1)
-    scores = ssum / inside.sum(-1).clamp(min=1)
+    scores = []
+    for k in range(0, K, SCORE_SLOTS):
+        sl = slice(k, k + SCORE_SLOTS)
+        dx = xcoord[None, None, :] - cx[:, sl, None]              # [P, k, HW]
+        dy = ys[None, None, :] - cy[:, sl, None]
+        u = dx * ct2[:, sl, None] + dy * st2[:, sl, None]
+        v = -dx * st2[:, sl, None] + dy * ct2[:, sl, None]
+        inside = ((u.abs() <= a2[:, sl, None] / 2 + 0.5)
+                  & (v.abs() <= b2[:, sl, None] / 2 + 0.5))
+        ssum = torch.where(inside, prob.reshape(P, 1, HW), 0.0).sum(-1)
+        scores.append(ssum / inside.sum(-1).clamp(min=1))
+    scores = torch.cat(scores, 1)
 
     # --- corners, unclip, clip, validity ---
     eu = torch.stack([ct2, st2], -1)       # reading axis

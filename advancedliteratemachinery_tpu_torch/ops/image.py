@@ -2,12 +2,34 @@
 `advancedliteratemachinery_tpu/ops/image.py`: `normalize_crops`,
 `crop_rects`, `warp_quad_crops`, `resize_word_crops`). Layouts are the JAX
 package's: NHWC uint8 in, NHWC normalized out.
+
+The document pipelines' cv2 calls have no twin in the JAX package's ops;
+the card's machine has no cv2, so they are here too, on the device with
+uint8 out:
+
+- `resize_linear_u8` is `cv2.resize(..., INTER_LINEAR)`: half-pixel
+  centres, edge clamp, no antialias, in cv2's own fixed point (11-bit
+  weights; the vertical pass as its vector code rounds it). It equals
+  cv2 5.0 bit for bit on every downscale tried and is within one uint8
+  level on upscales, where cv2's scalar edge code rounds otherwise;
+- `warp_perspective_u8` is `cv2.warpPerspective` (INTER_LINEAR,
+  BORDER_CONSTANT 0) with the inverse homography that
+  `perspective_maps` solves from each quad, as `cv2.getPerspectiveTransform`
+  does: integer destination pixels mapped back in float64, bilinear taps
+  in float32, a tap outside the page reads 0, rounded half up. Within
+  one uint8 level of cv2 5.0;
+- `crop_quads_u8` chains them: every quad to its own size (the JAX
+  pipeline's `crop_image`), then to the recognizer's crop shape, for all
+  quads of a page in one batch (each warped into a canvas of the largest
+  crop's size and resized from its own corner).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 
 
@@ -130,3 +152,181 @@ def resize_word_crops(images_u8: torch.Tensor,
     x = torch.einsum("iy,byxc->bixc", ry, images_u8.float())
     x = torch.einsum("jx,bixc->bijc", rx, x)
     return (x * (2.0 / 255.0) - 1.0).to(dtype)
+
+
+# cv2's fixed point for linear resizes: INTER_RESIZE_COEF_BITS
+RESIZE_COEF_SCALE = 2048
+
+
+def as_device_tensor(x, device) -> torch.Tensor:
+    """A NumPy array or a tensor on any device → a tensor on `device`."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x))
+    return x.to(device)
+
+
+def _linear_taps(in_size: torch.Tensor, out_size: int):
+    """cv2's linear resize taps along one axis for sources of `in_size`
+    pixels ([N] int64, one per image) to `out_size`: (i0, i1, a0, a1),
+    each [N, out_size]; a0/a1 are the 11-bit fixed-point weights."""
+    dev = in_size.device
+    scale = 1.0 / (out_size / in_size.double())                 # [N]
+    d = torch.arange(out_size, dtype=torch.float64, device=dev)
+    s = ((d[None] + 0.5) * scale[:, None] - 0.5).float()
+    s0 = torch.floor(s)
+    f = s - s0
+    s0 = s0.long()
+    last = in_size[:, None] - 1
+    low, high = s0 < 0, s0 >= last
+    f = torch.where(low | high, 0.0, f)
+    s0 = torch.where(low, 0, torch.where(high, last, s0))
+    a1 = torch.round(f * RESIZE_COEF_SCALE).int()
+    a0 = torch.round((1.0 - f) * RESIZE_COEF_SCALE).int()
+    return s0, torch.minimum(s0 + 1, last), a0, a1
+
+
+def resize_crops_u8(images_u8: torch.Tensor, sizes: torch.Tensor,
+                    out_hw: Tuple[int, int]) -> torch.Tensor:
+    """uint8 [N, Hc, Wc, C], image n valid in its top-left
+    sizes[n] = (w, h) → uint8 [N, h_out, w_out, C], each resized from its
+    own size as `cv2.resize(..., INTER_LINEAR)`."""
+    N, Hc, Wc, C = images_u8.shape
+    oh, ow = out_hw
+    n = torch.arange(N, device=images_u8.device)[:, None]
+    y0, y1, b0, b1 = _linear_taps(sizes[:, 1].long(), oh)
+    x0, x1, a0, a1 = _linear_taps(sizes[:, 0].long(), ow)
+    im = images_u8.int()
+    # horizontal pass: [N, Hc, ow, C] at scale 2048
+    hz = (im[n, :, x0].permute(0, 2, 1, 3) * a0[:, None, :, None]
+          + im[n, :, x1].permute(0, 2, 1, 3) * a1[:, None, :, None])
+    r0 = hz[n, y0] >> 4                                    # [N, oh, ow, C]
+    r1 = hz[n, y1] >> 4
+    v = (((r0 * b0[..., None, None]) >> 16)
+         + ((r1 * b1[..., None, None]) >> 16) + 2) >> 2
+    return v.clamp(0, 255).to(torch.uint8)
+
+
+def resize_each_u8(images_u8: Sequence, out_hw: Tuple[int, int],
+                   device, batch: int = 0) -> torch.Tensor:
+    """uint8 images [h_i, w_i, C] of any sizes (NumPy arrays or tensors on
+    any device) → uint8 [max(N, batch), h, w, C] on `device`: image i
+    resized from its own size as `cv2.resize(image, (w, h))`, the rows past
+    N zero. Each image goes up once, into one zero canvas, and one
+    `resize_crops_u8` resizes them all."""
+    n = max(len(images_u8), batch)
+    hc = max(int(im.shape[0]) for im in images_u8)
+    wc = max(int(im.shape[1]) for im in images_u8)
+    C = int(images_u8[0].shape[-1])
+    canvas = torch.zeros((n, hc, wc, C), dtype=torch.uint8, device=device)
+    for i, im in enumerate(images_u8):
+        canvas[i, :im.shape[0], :im.shape[1]] = as_device_tensor(im, device)
+    sizes = ([[int(im.shape[1]), int(im.shape[0])] for im in images_u8]
+             + [[wc, hc]] * (n - len(images_u8)))
+    return resize_crops_u8(canvas, torch.tensor(sizes, device=device),
+                           out_hw)
+
+
+def resize_linear_u8(images_u8: torch.Tensor,
+                     out_hw: Tuple[int, int]) -> torch.Tensor:
+    """uint8 [B, H, W, C] → uint8 [B, h, w, C], `cv2.resize(image, (w, h))`
+    with its default INTER_LINEAR."""
+    B, H, W, _ = images_u8.shape
+    sizes = torch.tensor([[W, H]], device=images_u8.device).expand(B, 2)
+    return resize_crops_u8(images_u8, sizes, out_hw)
+
+
+def _quad_size(pts: np.ndarray) -> Tuple[int, int]:
+    """The JAX `crop_image`'s crop size: the longer of each pair of
+    opposite sides, truncated, at least 1 (float32 differences, float64
+    lengths, as its `math.hypot` on float32 coordinates)."""
+    def dist(a, b):
+        return math.hypot(a[0] - b[0], a[1] - b[1])
+
+    w = int(max(dist(pts[0], pts[1]), dist(pts[3], pts[2])))
+    h = int(max(dist(pts[0], pts[3]), dist(pts[1], pts[2])))
+    return max(w, 1), max(h, 1)
+
+
+def perspective_maps(quads) -> Tuple[np.ndarray, np.ndarray]:
+    """quads [N, 4, 2] (tl, tr, br, bl) → (sizes [N, 2] int64 (w, h), the
+    homographies [N, 3, 3] float64 that map each crop's pixel (x, y, 1)
+    back onto the page), on the host: the inverse of
+    `cv2.getPerspectiveTransform(quad, [(0, 0), (w, 0), (w, h), (0, h)])`,
+    solved directly from the 8 equations in float64."""
+    quads = np.asarray(quads, np.float32).reshape(-1, 4, 2)
+    N = len(quads)
+    sizes = np.array([_quad_size(q) for q in quads], np.int64).reshape(N, 2)
+    w = sizes[:, 0].astype(np.float64)
+    h = sizes[:, 1].astype(np.float64)
+    zero = np.zeros(N)
+    dst = np.stack([np.stack([zero, zero], -1), np.stack([w, zero], -1),
+                    np.stack([w, h], -1), np.stack([zero, h], -1)], 1)
+    src = quads.astype(np.float64)
+    A = np.zeros((N, 8, 8))
+    b = np.zeros((N, 8))
+    for i in range(4):
+        x, y = dst[:, i, 0], dst[:, i, 1]
+        u, v = src[:, i, 0], src[:, i, 1]
+        A[:, i, 0], A[:, i, 1], A[:, i, 2] = x, y, 1.0
+        A[:, i, 6], A[:, i, 7] = -x * u, -y * u
+        A[:, i + 4, 3], A[:, i + 4, 4], A[:, i + 4, 5] = x, y, 1.0
+        A[:, i + 4, 6], A[:, i + 4, 7] = -x * v, -y * v
+        b[:, i], b[:, i + 4] = u, v
+    m = np.linalg.solve(A, b[..., None])[..., 0] if N else np.zeros((0, 8))
+    return sizes, np.concatenate([m, np.ones((N, 1))], 1).reshape(N, 3, 3)
+
+
+def warp_perspective_u8(image_u8: torch.Tensor, inv_maps: torch.Tensor,
+                        out_hw: Tuple[int, int]) -> torch.Tensor:
+    """uint8 page [H, W, C], inverse homographies [N, 3, 3] (float64) →
+    uint8 [N, h, w, C]: `cv2.warpPerspective(page, M, (w, h))` for each
+    map, INTER_LINEAR with a constant 0 border."""
+    H, W, C = image_u8.shape
+    oh, ow = out_hw
+    dev = image_u8.device
+    m = inv_maps.to(dev, torch.float64)
+    ys = torch.arange(oh, dtype=torch.float64, device=dev)[:, None]
+    xs = torch.arange(ow, dtype=torch.float64, device=dev)[None, :]
+
+    def row(k):
+        return (m[:, k, 0, None, None] * xs + m[:, k, 1, None, None] * ys
+                + m[:, k, 2, None, None])
+
+    den = row(2)
+    den = torch.where(den == 0, torch.inf, den)       # cv2: W ? 1/W : 0
+    X, Y = row(0) / den, row(1) / den                   # [N, oh, ow]
+    x0f, y0f = torch.floor(X), torch.floor(Y)
+    fx = (X - x0f).float()[..., None]
+    fy = (Y - y0f).float()[..., None]
+    x0 = x0f.clamp(-2, W + 1).long()
+    y0 = y0f.clamp(-2, H + 1).long()
+    flat = image_u8.reshape(H * W, C).float()
+
+    def tap(yy, xx):
+        inside = ((yy >= 0) & (yy < H) & (xx >= 0) & (xx < W))[..., None]
+        idx = (yy.clamp(0, H - 1) * W + xx.clamp(0, W - 1))
+        return torch.where(inside, flat[idx], 0.0)
+
+    v = ((tap(y0, x0) * (1 - fx) + tap(y0, x0 + 1) * fx) * (1 - fy)
+         + (tap(y0 + 1, x0) * (1 - fx) + tap(y0 + 1, x0 + 1) * fx) * fy)
+    return torch.floor(v + 0.5).clamp(0, 255).to(torch.uint8)
+
+
+def crop_quads_u8(image_u8: torch.Tensor, quads,
+                  out_hw: Tuple[int, int] = (32, 128)) -> torch.Tensor:
+    """uint8 page [H, W, C] on its device, quads [N, 4, 2] (host, ordered
+    tl, tr, br, bl) → uint8 [N, h, w, C] on the page's device: each quad
+    rectified to its own size (`cv2.getPerspectiveTransform` +
+    `cv2.warpPerspective`), then resized to `out_hw` (`cv2.resize`). The
+    sizes and homographies come from the host's quads, so no crop waits
+    on the device."""
+    sizes, maps = perspective_maps(quads)
+    N = len(sizes)
+    C = image_u8.shape[-1]
+    if N == 0:
+        return torch.zeros((0, *out_hw, C), dtype=torch.uint8,
+                           device=image_u8.device)
+    canvas_hw = (int(sizes[:, 1].max()), int(sizes[:, 0].max()))
+    canvas = warp_perspective_u8(image_u8, torch.from_numpy(maps), canvas_hw)
+    return resize_crops_u8(canvas, torch.from_numpy(sizes).to(
+        image_u8.device), out_hw)

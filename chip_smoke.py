@@ -117,7 +117,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     its service against its infer_spotting on all 8 pages; bf16
     teacher-forced logits against the CPU's own bf16 error; no port kernel
     may launch. The golden replay and the reference checkpoints take
-    `omniparser.pth` and a full-width OmniParser file too.
+    `omniparser.pth` and a full-width OmniParser file too;
+17. the document pipelines, the seventh path (`docxchain`): DocXLayout
+    (`DocXLayoutConfig()`), LORE (`LoreConfig()` on 512² resizes), DB
+    (`DBConfig()` at 640²) and MGP-STR-base in bf16 on 8 seeded 1024x768
+    document pages and 8 table pages, the weights made readable (DB by
+    hand to an ink detector, so every page gives 20-64 words, and a dense
+    page 150-300; the DLAs' BatchNorms at He's gain, their heat readouts
+    fitted to the ink and lifted so that every table keeps 10-100 cells
+    and every page 1-100 regions above 0.3; cell- and region-sized
+    boxes): pages/s and p50/p99 of `GeneralTextReading`, `TableParsing`
+    and `DocumentStructurization`, stage times by CUDA events, 12 K1 +
+    2 K2 a recognizer batch (several on the dense page, whose strings
+    must be the engine's on the same batches) and 16 K3 a LORE forward;
+    the f32 pipelines on the card (no launch) against the port on the CPU
+    (equal results); every bf16 keep, class and character decision that
+    parts from f32 within FLIP_RMS_BOUND times the map's RMS bf16 error,
+    LORE's features through K3 within 1.5x the same model's error on the
+    plain DCN, and controls (K3 fed offsets shifted half a pixel must fail
+    that bound); a released-layout DocXLayout file through
+    `import_docxlayout`; `cli table` in a fresh process (equal JSON, its
+    cold start); `RecognitionHTTPServer` with 64 concurrent
+    `/v1/recognize` and 3 `/v1/read` requests, equal to `recognize` on
+    the same crops. The golden replay takes `docxlayout.pth` too.
 
 Every checked kernel call (K1-K5, and each K4 call of the stress) runs on
 poisoned memory: what the caching allocator is about to hand the wrapper
@@ -130,10 +152,11 @@ Launch counts are zeroed just before each main path and read just after:
 every recognizer forward must launch the attention kernel 12 times and the
 vocab kernel twice, every LORE forward the deformable conv kernel 16
 times and nothing else, every train step the attention kernel and its
-backward kernel 12 times each and nothing else, and the f32 models, the
-golden replay, LISTER, LevOCR and OmniParser nothing at all. Every time printed is
-this card's own, taken with CUDA events or, end to end, with the host
-clock after a synchronize.
+backward kernel 12 times each and nothing else, each document pipeline
+its recognizer's and (tables) LORE's kernels, and the f32 models, the
+golden replay, LISTER, LevOCR, OmniParser and DocXLayout nothing at all.
+Every time printed is this card's own, taken with CUDA events or, end to
+end, with the host clock after a synchronize.
 The second-to-last line is one JSON object `{"kernels": [...]}`; the last is
 `{"ok": true, "device": {...}}`.
 """
@@ -142,6 +165,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import hashlib
 import json
 import mmap
 import os
@@ -158,15 +182,16 @@ import torch
 from advancedliteratemachinery_tpu_torch.codecs.char_codec import CharCodec
 from advancedliteratemachinery_tpu_torch.codecs.subword import (
     BpeCodec, WordpieceCodec)
-from advancedliteratemachinery_tpu_torch.core.precision import FP32_POLICY
+from advancedliteratemachinery_tpu_torch.core.precision import (
+    DEFAULT_POLICY, FP32_POLICY)
 from advancedliteratemachinery_tpu_torch.engine.batches import (
     mgp_str_recipe_u8)
 from advancedliteratemachinery_tpu_torch.engine.fit import (
     FitConfig, fit, restore_train_state)
 from advancedliteratemachinery_tpu_torch.engine.checkpoint import (
-    dcn_offset_perm, import_dla, import_levocr, import_levt, import_lister,
-    import_lore_processor, import_mgp_str, import_omniparser,
-    load_torch_state_dict)
+    dcn_offset_perm, import_dla, import_docxlayout, import_levocr,
+    import_levt, import_lister, import_lore_processor, import_mgp_str,
+    import_omniparser, load_torch_state_dict)
 from advancedliteratemachinery_tpu_torch.engine.infer import (
     LevOCRInference, LISTERInference, MGPSTRInference)
 from advancedliteratemachinery_tpu_torch.engine.serving import (
@@ -179,6 +204,8 @@ from advancedliteratemachinery_tpu_torch.models.abinet import (
 from advancedliteratemachinery_tpu_torch.models.db import DBConfig, DBDetector
 from advancedliteratemachinery_tpu_torch.models.dla import (
     DLAConfig, DLASeg, DLASegConfig)
+from advancedliteratemachinery_tpu_torch.models.docxlayout import (
+    DocXLayout, DocXLayoutConfig, make_layout_predict_fn)
 from advancedliteratemachinery_tpu_torch.models.focalnet import (
     FocalNetConfig)
 from advancedliteratemachinery_tpu_torch.models.levocr import (
@@ -199,12 +226,17 @@ from advancedliteratemachinery_tpu_torch.ops.attention import (
     mha_short_seq_plain)
 from advancedliteratemachinery_tpu_torch.ops.cc_extract import (
     extract_boxes_device)
+from advancedliteratemachinery_tpu_torch.ops import deform_conv as dcn_module
 from advancedliteratemachinery_tpu_torch.ops.deform_conv import (
-    DeformConv2d, deform_conv2d, deform_conv2d_plain)
+    DeformConv2d, deform_conv2d, deform_conv2d_plain, supports_deform_conv)
+from advancedliteratemachinery_tpu_torch.ops.heatmap import (
+    heatmap_peaks, sigmoid_clamped)
 from advancedliteratemachinery_tpu_torch.ops.image import (
     crop_rects, normalize_crops)
 from advancedliteratemachinery_tpu_torch.ops.vocab_decode import (
     matmul_greedy_decode, matmul_greedy_decode_plain)
+from advancedliteratemachinery_tpu_torch.pipelines.modules import (
+    order_point)
 
 # published H100 SXM peaks (NVIDIA data sheet) for the roofline bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -324,8 +356,12 @@ GOLDEN_OMNIPARSER = OmniParserConfig(
     poly_length=4, rec_length=4, max_instances=4,
     swin=SwinConfig(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
                     window_size=4))
+GOLDEN_DOCXLAYOUT = DocXLayoutConfig(
+    num_classes=3, num_secondary_classes=2, top_k=8, top_k_sub=4,
+    dla=DLAConfig(levels=(1, 1, 1, 2, 2, 1),
+                  channels=(4, 8, 16, 32, 64, 128)), head_conv=8)
 GOLDEN_TOL = {"mgp_str": 2e-4, "lore": 2e-3, "lister": 1e-5,
-              "levocr": 3e-3, "omniparser": 2e-3}
+              "levocr": 3e-3, "omniparser": 2e-3, "docxlayout": 2e-3}
 
 ATTN_SRC = "advancedliteratemachinery_tpu_torch/csrc/fused_qkv_attention.cu"
 DECODE_SRC = "advancedliteratemachinery_tpu_torch/csrc/vocab_greedy_decode.cu"
@@ -1202,10 +1238,11 @@ FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 
 def golden_replay():
-    """tests/golden/{mgp_str,lore,lister,levocr,omniparser}.pth through the
-    port's `load_torch_state_dict` and importers into the port's models in
-    f32 on the card (which no kernel takes), against the committed outputs
-    of the reference's math at the golden tolerances (rtol = atol)."""
+    """tests/golden/{mgp_str,lore,lister,levocr,omniparser,docxlayout}.pth
+    through the port's `load_torch_state_dict` and importers into the
+    port's models in f32 on the card (which no kernel takes), against the
+    committed outputs of the reference's math at the golden tolerances
+    (rtol = atol)."""
     t0 = time.perf_counter()
 
     def load(family):
@@ -1249,6 +1286,13 @@ def golden_replay():
                      for k in ("pt", "poly", "rec")})
         outs["omniparser"] = {k: (got[k], data[f"out_{k}"])
                               for k in ("pt", "poly", "rec")}
+        sd, data = load("docxlayout")
+        model = DocXLayout(GOLDEN_DOCXLAYOUT, policy=FP32_POLICY)
+        import_docxlayout(sd, model)
+        got = model(torch.from_numpy(data["in_image"]).cuda())
+        outs["docxlayout"] = {k: (got[k], data[f"out_{k}"]) for k in (
+            "hm", "cls", "ftype", "wh", "reg", "hm_sub", "wh_sub",
+            "reg_sub")}
         return outs
 
     outs, counts = counted(run)
@@ -2872,6 +2916,1039 @@ def fit_phase(host):
     return rec
 
 
+# ---------------- the document pipelines (docxchain) ----------------
+
+DOC_PAGES = 8
+DOC_HW = (1024, 768)          # pages, a multiple of 32
+DOC_WORDS = (20, 64)          # words a page through the detect function
+DENSE_WORDS = (150, 300)      # words on the dense page: 3-5 recognizer
+#                               forwards of 64 crops
+TABLE_CELLS = (10, 100)       # cells above the score threshold a table
+LAYOUT_REGIONS = (1, 100)     # layout regions above the threshold a page
+TABLE_INPUT = 512             # make_table_predict_fn's page size
+# readable DB: prob = sigmoid(gain * ink - bias), ink = 1 - the page's
+# mean channel value in [0, 1]
+DB_INK_GAIN, DB_INK_BIAS = 12.0, 6.0
+# readable heat heads: the spread of their logits, and the least distance
+# in logits between the threshold and any peak (bf16 values) that
+# `lift_heat_bias` accepts: far above the error of the decode's float32
+# sigmoid, below a bf16 step there
+HEAT_SPREAD = 1.5
+HEAT_MARGIN = 1e-3
+# readable boxes: half a table cell's width and height on LORE's map of a
+# TABLE_INPUT page, half a layout region's on DocXLayout's map of a page
+LORE_CELL_HALF = (10.0, 5.0)
+LAYOUT_REGION_HALF = (24.0, 24.0)
+DOC_BF16_RTOL = 5e-2          # bf16 features and logits vs f32, rel. RMS
+# LORE's bf16 features (through K3) against f32: at most this times the
+# error of the same bf16 model on the plain DCN (K3's rounding points)
+DOC_K3_RATIO = 1.5
+# K3 fed offsets shifted by these pixels (a sampling fault, the first a
+# half-pixel centre convention): the first must fail DOC_K3_RATIO
+K3_CONTROL_SHIFTS = (0.5, 0.1)
+# a bf16 decision that parts from f32 is a rounding flip when its f32
+# margin (in logits) is within the errors of two positions, its own and a
+# neighbour's or the other class's: at most this many times the RMS of
+# the bf16 error over the map (two Gaussian errors pass 12 sigma
+# together with odds of ~1e-9 a position)
+FLIP_RMS_BOUND = 12.0
+DOC_POLY_TOL = 1e-2           # f32 card vs CPU polygon coordinates, pixels
+
+
+def _word(page, rng, y, x, h, w):
+    """A dark textured block: a word as the detector sees it."""
+    page[y:y + h, x:x + w] = rng.integers(0, 90, (h, w, 3), dtype=np.uint8)
+
+
+def document_pages(n, hw=DOC_HW, seed=0):
+    """`n` seeded pages: paper noise, a title of 2-3 large words, then two
+    columns of 5-7 lines of 2-4 words."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    pages = []
+    for _ in range(n):
+        page = rng.integers(228, 256, (H, W, 3), dtype=np.uint8)
+        x = int(W * 0.08)
+        for _ in range(int(rng.integers(2, 4))):
+            w = int(rng.integers(W // 8, W // 5))
+            _word(page, rng, int(H * 0.06), x, int(H * 0.04), w)
+            x += w + int(W * 0.05)
+        col_w = W // 2 - int(W * 0.1)
+        for c in range(2):
+            x0 = int(W * 0.06) + c * (W // 2)
+            y = int(H * 0.18) + int(rng.integers(0, H // 20))
+            for _ in range(int(rng.integers(5, 8))):
+                x = x0
+                for _ in range(int(rng.integers(2, 5))):
+                    w = int(rng.integers(W // 16, W // 8))
+                    if x + w > x0 + col_w:
+                        break
+                    _word(page, rng, y, x, int(H * 0.022), w)
+                    x += w + int(W * 0.04)
+                y += int(H * 0.07)
+        pages.append(page)
+    return np.stack(pages)
+
+
+def dense_page(hw=DOC_HW, seed=3):
+    """A seeded page of small print: two columns of 25 lines of 3-6 words,
+    150-300 words in all, so that a page takes several recognizer
+    forwards of 64 crops."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    page = rng.integers(228, 256, (H, W, 3), dtype=np.uint8)
+    col_w = W // 2 - int(W * 0.1)
+    for c in range(2):
+        x0 = int(W * 0.06) + c * (W // 2)
+        for y in range(int(H * 0.05), int(H * 0.95), int(H * 0.036)):
+            x = x0 + int(rng.integers(0, W // 40))
+            while True:
+                w = int(rng.integers(W // 24, W // 12))
+                if x + w > x0 + col_w:
+                    break
+                _word(page, rng, y, x, int(H * 0.014), w)
+                x += w + int(W * 0.026)
+    return page
+
+
+def table_pages(n, hw=DOC_HW, seed=1):
+    """`n` seeded pages, each a ruled table (light gray lines) of 5-8 rows
+    by 4-6 columns with one word a cell, under a caption of 2 words."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    pages = []
+    for _ in range(n):
+        page = rng.integers(228, 256, (H, W, 3), dtype=np.uint8)
+        for i in range(2):
+            _word(page, rng, int(H * 0.07), int(W * (0.08 + 0.2 * i)),
+                  int(H * 0.03), int(W * 0.15))
+        rows, cols = int(rng.integers(5, 9)), int(rng.integers(4, 7))
+        x0, x1 = int(W * 0.06), int(W * 0.94)
+        y0, rh = int(H * 0.16), int(H * 0.08)
+        cw = (x1 - x0) // cols
+        for r in range(rows + 1):
+            page[y0 + r * rh:y0 + r * rh + 2, x0:x0 + cols * cw] = 200
+        for c in range(cols + 1):
+            page[y0:y0 + rows * rh, x0 + c * cw:x0 + c * cw + 2] = 200
+        for r in range(rows):
+            for c in range(cols):
+                w = int(cw * rng.uniform(0.3, 0.7))
+                _word(page, rng, y0 + r * rh + int(rh * 0.35),
+                      x0 + c * cw + int((cw - w) * rng.uniform(0.2, 0.8)),
+                      int(H * 0.022), w)
+        pages.append(page)
+    return np.stack(pages)
+
+
+def readable_db(model):
+    """Set a DB detector's weights by hand to an ink detector, since random
+    weights give no word-shaped components: channel 0 carries the page's
+    darkness (1 - the mean of its channels at the stem's centre tap)
+    through every layer (the residual blocks' convs zero, so each block
+    passes its input on; the downsampling 1x1 convs, the stride-4 lateral,
+    its smoothing conv and the head's 3x3 conv pick channel 0), the other
+    channels are zero, and the head ends in
+    sigmoid(DB_INK_GAIN * ink - DB_INK_BIAS), so dark blocks on paper
+    become components of probability near 1."""
+    p = model
+    with torch.no_grad():
+        for m in p.modules():
+            if isinstance(m, torch.nn.Conv2d):
+                m.weight.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.fill_(1.0)
+                m.bias.zero_()
+                m.running_mean.zero_()
+                m.running_var.fill_(1.0 - m.eps)
+        k = p.stem.conv.kernel_size[0] // 2
+        p.stem.conv.weight[0, :, k, k] = -1.0 / 3.0
+        p.stem.bn.bias[0] = 1.0
+        for m in p.modules():
+            if getattr(m, "down", None) is not None:
+                m.down.conv.weight[0, 0, 0, 0] = 1.0
+        p.lat0.weight[0, 0, 0, 0] = 1.0
+        p.smooth0.weight[0, 0, 1, 1] = 1.0
+        p.prob_c.conv.weight[0, 0, 1, 1] = 1.0
+        p.prob_up1.weight[0:4, 0, 0, 0] = 1.0
+        p.prob_up2.weight[0:4, 0, 0, 0] = DB_INK_GAIN
+        p.prob_up2.bias[:] = -DB_INK_BIAS
+
+
+def readable_dla(model):
+    """A DLA-34 as drawn (lecun-normal convs, BatchNorm at unit scale)
+    halves the second moment of its activations at every ReLU, so after
+    its ~30 layers the heads see features near zero and every head map is
+    its bias: the heat is flat and its peaks are the top-K's ties (the
+    map's first row). Every BatchNorm scale times sqrt(2) (He's gain)
+    keeps the features at the input's scale, so the heads answer the
+    page."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.mul_(2.0 ** 0.5)
+
+
+def head_features(seg, images, head):
+    """The input of `head`'s last conv in a DLASeg or DLASegV0 `seg` for
+    NHWC `images` (the neck's map through the head's 3x3 conv and ReLU),
+    in float32 [B, C, h, w]: what the head's 1x1 conv reads."""
+    c = seg.policy.compute_dtype
+    x = images.to(c).permute(0, 3, 1, 2)
+    feats = seg.base(x)
+    if isinstance(seg, DLASeg):
+        pyramid = seg.dla_up(feats[seg.first:])
+        feat = seg.ida_up(pyramid[:seg.config.last_level - seg.first])[-1]
+    else:
+        feat = seg.dla_up(feats[seg.first:])
+    return torch.relu(layers.conv2d(feat, getattr(seg, f"{head}_conv1"),
+                                    c)).float()
+
+
+def fit_heat_readout(seg, inputs, pages, blur, ridge=1e-3):
+    """Readable heat for a random DLA head: the `hm` head's channel 0
+    readout (its 1x1 conv's weights and bias) fitted by ridge least
+    squares to the ink of the pages (1 - the channel mean, pooled to the
+    map and box-blurred over `blur` cells), so that its peaks sit on text
+    rather than on the features' noise. `inputs` are the model's inputs
+    (float [1, H, W, 3] each), `pages` the uint8 pages they came from.
+    Returns the fit's R²."""
+    A, t = [], []
+    with torch.inference_mode():
+        for x, page in zip(inputs, pages):
+            h = head_features(seg, x, "hm")[0]                 # [C, h, w]
+            ink = 1.0 - torch.from_numpy(page).to(h.device).float().mean(
+                -1) / 255.0
+            ink = torch.nn.functional.adaptive_avg_pool2d(
+                ink[None, None], h.shape[1:])
+            ink = torch.nn.functional.avg_pool2d(
+                ink, blur, 1, blur // 2, count_include_pad=False)[0, 0]
+            A.append(h.reshape(h.shape[0], -1).t())
+            t.append(ink.reshape(-1))
+    A = torch.cat(A).double()
+    A = torch.cat([A, torch.ones_like(A[:, :1])], 1)
+    t = torch.cat(t).double()
+    G = A.t() @ A
+    G += ridge * torch.diag(G).mean() * torch.eye(len(G), device=G.device,
+                                                   dtype=G.dtype)
+    w = torch.linalg.solve(G, A.t() @ t)
+    r2 = 1.0 - ((A @ w - t).pow(2).mean() / t.var()).item()
+    conv = seg.hm_out
+    with torch.no_grad():
+        conv.weight[0, :, 0, 0] = w[:-1].float()
+        conv.bias[0] = float(w[-1])
+    return r2
+
+
+def readable_boxes(wh, half):
+    """A corner-offset head (`wh`, the last conv of LORE's or DocXLayout's
+    wh head) as drawn gives boxes of a pixel or two on the map, which hold
+    no word: its weights are scaled by 0.1 and its bias set to the corners
+    of a box of `half` (width, height) around each center (x - d0, y - d1
+    the top left, clockwise), so that cells and regions cover words."""
+    hx, hy = half
+    with torch.no_grad():
+        wh.weight.mul_(0.1)
+        wh.bias.copy_(torch.tensor([hx, hy, -hx, hy, -hx, -hy, hx, -hy]))
+
+
+def heat_keep(logits, thr, strict, delta=0.0):
+    """One heat channel's logits [B, h, w] → the positions a decode keeps
+    (a 3x3 peak of the clamped sigmoid whose score passes `thr`, `>` when
+    `strict`, else `>=`) after adding `delta` to the logits, and the
+    clamped sigmoid."""
+    hm = sigmoid_clamped(logits.float() + delta)[..., None]
+    peaks = heatmap_peaks(hm)[..., 0]
+    return (peaks > thr) if strict else (peaks >= thr), hm[..., 0]
+
+
+def lift_heat_bias(conv, channel, logits_fn, pages, bounds, thr, strict,
+                   top_k, tries=12):
+    """Make a heat head readable: scale the weights of its `channel` (in
+    `conv`, its last 1x1 conv) so that its logits spread by HEAT_SPREAD
+    (standard deviation over the pages; random features vary little), then
+    shift the channel's bias so that every page keeps between bounds[0]
+    and bounds[1] positions above `thr`. Peaks do not move with either
+    change (the first is monotone, the second a shift of every logit), so
+    a shift's counts and its least distance from any peak to the
+    threshold can be predicted; the shifts are tried farthest first and
+    each is verified by a real run (in bf16 the bias and the logits round),
+    until one keeps every page in bounds with every peak at least
+    HEAT_MARGIN logits from the threshold. Returns {the gain, the lift,
+    the margin, the counts}."""
+    t = float(np.log(thr / (1.0 - thr)))
+
+    def peak_logits():
+        out = []
+        for page in pages:
+            lg = logits_fn(page).float()
+            _, hm = heat_keep(lg, 0.0, False)
+            is_peak = heatmap_peaks(hm[..., None])[..., 0] > 0
+            out.append(torch.sort(lg[is_peak], descending=True)
+                       .values[:top_k + 1].cpu().numpy())
+        return out
+
+    def counts(vals, delta=0.0):     # up to top_k + 1: past bounds
+        return [int(((v + delta > t) if strict else (v + delta >= t)).sum())
+                for v in vals]
+
+    std = torch.cat([logits_fn(p).float().reshape(-1)
+                     for p in pages]).std().item()
+    gain = HEAT_SPREAD / max(std, 1e-6)
+    with torch.no_grad():
+        conv.weight[channel] *= gain
+    vals = peak_logits()
+    edges = np.unique(np.concatenate([t - v for v in vals]))
+    cands = sorted(((float(g), float(d)) for d, g in zip(
+        (edges[1:] + edges[:-1]) / 2, (edges[1:] - edges[:-1]) / 2)
+        if all(bounds[0] <= n <= bounds[1] for n in counts(vals, d))),
+        reverse=True)
+    base = conv.bias[channel].item()
+    tried = []
+    for predicted, delta in cands[:tries]:
+        with torch.no_grad():
+            conv.bias[channel] = base + delta
+        real = peak_logits()
+        n = counts(real)
+        margin = min(float(np.abs(v - t).min()) for v in real)
+        tried.append([predicted, margin, n])
+        if (all(bounds[0] <= c <= bounds[1] for c in n)
+                and margin >= HEAT_MARGIN):
+            return {"logit_std": std, "gain": gain, "lift": delta,
+                    "margin_logits": margin, "counts": n,
+                    "tried": len(tried)}
+    with torch.no_grad():
+        conv.bias[channel] = base
+    near = {round(float(d), 3): counts(vals, d)
+            for d in np.quantile((edges[1:] + edges[:-1]) / 2,
+                                 [0.01, 0.03, 0.1, 0.3])} if len(edges) > 1 \
+        else {}
+    require(False, f"no heat bias lift keeps every page within {bounds} "
+                   f"and HEAT_MARGIN from the threshold: tried {tried}; "
+                   f"counts by lift {near}")
+
+
+class StageClock:
+    """CUDA events at the stage boundaries of pipeline calls: `wrap` marks
+    the end of a module callable (or, with `before`, its start too)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def start(self):
+        self.calls.append([("start", self._event())])
+
+    @staticmethod
+    def _event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def mark(self, name):
+        self.calls[-1].append((name, self._event()))
+
+    def wrap(self, name, fn, before=None):
+        def timed(*a, **k):
+            if before:
+                self.mark(before)
+            out = fn(*a, **k)
+            self.mark(name)
+            return out
+        return timed
+
+    def stage_ms(self):
+        torch.cuda.synchronize()
+        ms = {}
+        for marks in self.calls:
+            for (_, a), (name, b) in zip(marks, marks[1:]):
+                ms.setdefault(name, []).append(a.elapsed_time(b))
+        return {k: float(np.mean(v)) for k, v in ms.items()}
+
+
+class MemoRecognizer:
+    """`recognize` remembered by its crops: the CPU reference reads one
+    page twice (reading, structurization), with the same crops, and
+    pays for the f32 recognizer once."""
+
+    def __init__(self, engine):
+        self.engine = engine
+        self.seen = {}
+
+    def recognize(self, crops):
+        key = hashlib.sha1(np.asarray(crops).tobytes()).hexdigest()
+        if key not in self.seen:
+            self.seen[key] = self.engine.recognize(crops)
+        return self.seen[key]
+
+
+def doc_pipelines(engine, det_fn, table_fn, layout_fn, device=None,
+                  clock=None):
+    """GeneralTextReading, TableParsing and DocumentStructurization over
+    the given module callables (timed by `clock` when given)."""
+    from advancedliteratemachinery_tpu_torch.pipelines import (
+        DocumentStructurization, GeneralTextReading, LayoutAnalysis,
+        TableParsing, TableStructureRecognition, TextDetection,
+        TextRecognition)
+    rec_fn = engine.recognize
+    if clock is not None:
+        det_fn = clock.wrap("det", det_fn)
+        table_fn = clock.wrap("table", table_fn)
+        layout_fn = clock.wrap("layout", layout_fn)
+        rec_fn = clock.wrap("rec", rec_fn, before="crop")
+    det = TextDetection(det_fn)
+    rec = TextRecognition(rec_fn, device=device)
+    return {"reading": GeneralTextReading(det, rec),
+            "table": TableParsing(TableStructureRecognition(table_fn), det,
+                                  rec),
+            "structurization": DocumentStructurization(
+                LayoutAnalysis(layout_fn), det, rec, device=device)}
+
+
+def json_form(out):
+    return json.loads(json.dumps(out, default=float))
+
+
+def same_result(a, b, path="", exact=False):
+    """Pipeline outputs (JSON form) equal: every string, integer and
+    structure exactly, polygon coordinates within DOC_POLY_TOL pixels and
+    other floats within 1e-4 (`exact`: every float exactly). Returns the
+    first difference, or None."""
+    if isinstance(a, dict) and isinstance(b, dict):
+        if set(a) != set(b):
+            return f"{path}: keys {sorted(a)} vs {sorted(b)}"
+        for k in a:
+            d = same_result(a[k], b[k], f"{path}.{k}", exact)
+            if d:
+                return d
+        return None
+    if isinstance(a, list) and isinstance(b, list):
+        if len(a) != len(b):
+            return f"{path}: {len(a)} vs {len(b)} items"
+        for i, (x, y) in enumerate(zip(a, b)):
+            d = same_result(x, y, f"{path}[{i}]", exact)
+            if d:
+                return d
+        return None
+    if isinstance(a, float) or isinstance(b, float):
+        tol = 0.0 if exact else DOC_POLY_TOL if "poly" in path else 1e-4
+        return None if abs(a - b) <= tol else f"{path}: {a} vs {b}"
+    return None if a == b else f"{path}: {a!r} vs {b!r}"
+
+
+def rel_rms(a, b):
+    return ((a.float() - b.float()).pow(2).mean().sqrt()
+            / b.float().pow(2).mean().sqrt().clamp(min=1e-12)).item()
+
+
+def heat_flips(l16, l32, thr, strict):
+    """Where a heat map's keep decisions (a 3x3 peak whose score passes
+    `thr`) differ between bf16 and f32 logits [h, w]: for each, the f32
+    margin in logits (clamped as the scores are) to the threshold or to
+    the largest neighbour, whichever is nearer, over the RMS of the bf16
+    error of the map's logits. A flip's margin lies within the errors of
+    two positions, so over the local error the ratio stays below 2
+    whatever the error is; over the map's RMS error a fault that moves a
+    few positions far past bf16's error shows."""
+    k16, _ = heat_keep(l16[None], thr, strict)
+    k32, _ = heat_keep(l32[None], thr, strict)
+    margin = keep_margins(l32, thr)
+    rms = (l16.float() - l32.float()).pow(2).mean().sqrt().item()
+    differ = (k16 != k32)[0]
+    ratios = (margin[differ] / max(rms, 1e-12)).tolist()
+    return {"differ": int(differ.sum()), "kept_f32": int(k32.sum()),
+            "err_rms": rms, "worst_margin_over_rms": max(ratios, default=0.0)
+            }, k16[0] & k32[0]
+
+
+def keep_margins(logits, thr):
+    """Heat logits [h, w] → each position's distance in logits (clamped
+    as `sigmoid_clamped` clamps the scores) to the threshold's logit or
+    to its largest neighbour, whichever is nearer: how far its keep
+    decision is from turning."""
+    lo = float(np.log(1e-4 / (1.0 - 1e-4)))
+    lc = logits.float().clamp(lo, -lo)
+    t = float(np.log(thr / (1.0 - thr)))
+    pad = torch.nn.functional.pad(lc, (1, 1, 1, 1), value=lo - 1.0)
+    H, W = lc.shape
+    nb = torch.stack([pad[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+                      for dy in (-1, 0, 1) for dx in (-1, 0, 1)
+                      if dy or dx]).amax(0)
+    return torch.minimum((lc - t).abs(), (lc - nb).abs())
+
+
+def argmax_flips(l16, l32, mask=None):
+    """Where argmax over the last axis differs between bf16 and f32
+    logits (optionally only where `mask`): the f32 gap between the two
+    picks over the RMS of the bf16 error of the logits compared."""
+    a16, a32 = l16.argmax(-1), l32.argmax(-1)
+    differ = a16 != a32
+    err = (l16.float() - l32.float())
+    if mask is not None:
+        differ &= mask
+        err = err[mask]
+    rms = err.pow(2).mean().sqrt().item() if err.numel() else 0.0
+    g = torch.gather
+    gap = (g(l32, -1, a32[..., None]) - g(l32, -1, a16[..., None]))[..., 0]
+    ratios = (gap[differ] / max(rms, 1e-12)).tolist()
+    return {"differ": int(differ.sum()),
+            "decisions": int(mask.sum()) if mask is not None
+            else int(a32.numel()),
+            "err_rms": rms, "worst_gap_over_rms": max(ratios, default=0.0)}
+
+
+DOCX_TO_REFERENCE = DLA_TO_REFERENCE[:8] + (
+    (r"\.((?:proj|node)_\d+)\.conv\.", r".\1.0."),
+    (r"\.((?:proj|node)_\d+)\.bn\.", r".\1.1."),
+    (r"\.(up_\d+)\.kernel$", r".\1.weight"),
+    (r"^(\w+)_conv1\.", r"\1.0."),
+    (r"^(\w+)_out\.", r"\1.2."))
+
+
+def reference_docxlayout_state(model):
+    """A port DocXLayout's weights in the released checkpoint's layout
+    (dlav0_subfield.py DLASeg): Sequential indices for the neck's conv and
+    BatchNorm, the up kernels [C, 1, 2f, 2f]."""
+    out = {}
+    for k, v in model.backbone.state_dict().items():
+        for pattern, repl in DOCX_TO_REFERENCE:
+            k = re.sub(pattern, repl, k)
+        v = v.detach().cpu()
+        if re.search(r"\.up_\d+\.weight$", k):
+            v = v.permute(2, 0, 1)[:, None].contiguous()
+        out[k] = v
+    return out
+
+
+def docxlayout_reference_file(model):
+    """The released-layout DocXLayout file written, dropped from the page
+    cache, loaded and imported into a fresh `DocXLayoutConfig()` model;
+    the imported weights must equal the source's, with no tensor left
+    unused."""
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        path = os.path.join(tmp, "DocXLayout_231012.pth")
+        torch.save({"state_dict": {f"module.{k}": v for k, v in
+                                   reference_docxlayout_state(model).items()}},
+                   path)
+        rec["cached_share_after_evict"] = evict_from_page_cache(path)
+        t0 = time.perf_counter()
+        sd = load_torch_state_dict(path)
+        t1 = time.perf_counter()
+        fresh = DocXLayout(DocXLayoutConfig(), seed=9)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        import_docxlayout(sd, fresh)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        rec["seconds"] = {"load_after_evict": t1 - t0,
+                          "load_cached": timed_load(path),
+                          "build": t2 - t1, "import": t3 - t2}
+        rec["file_mb"] = os.path.getsize(path) / 1e6
+    want = model.state_dict()
+    got = fresh.state_dict()
+    rec["tensors"] = len(got)
+    rec["equal"] = all(torch.equal(got[k], want[k].to(got[k].device))
+                       for k in want if not k.endswith("num_batches_tracked"))
+    rec["unused_warnings"] = [str(w.message) for w in caught
+                              if "not mapped" in str(w.message)]
+    require(rec["equal"] and not rec["unused_warnings"],
+            f"DocXLayout reference file did not import as written: {rec}")
+    return rec
+
+
+def png_bytes(image):
+    """An 8-bit RGB PNG (rows unfiltered, zlib level 1) of a uint8
+    [H, W, 3] array."""
+    import struct
+    import zlib
+    h, w = image.shape[:2]
+    raw = np.concatenate([np.zeros((h, 1), np.uint8),
+                          np.ascontiguousarray(image).reshape(h, -1)], 1)
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def readable_cli_main(argv):
+    """`cli.main(argv[1:])` with the smoke's readable weights: the
+    `DBDetector` the CLI builds gets `readable_db`, and its `LORE`
+    `readable_dla`, the offsets of `reseed_offsets(seed=7)`,
+    `readable_boxes` and the heat head (fitted and lifted in the smoke's
+    process) from the file argv[0]. The CLI's own model functions and
+    pipeline run as they are."""
+    from advancedliteratemachinery_tpu_torch import cli
+    from advancedliteratemachinery_tpu_torch.models import db, lore
+    heat = torch.load(argv[0])
+
+    class ReadableDB(db.DBDetector):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            readable_db(self)
+
+    class ReadableLORE(lore.LORE):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            readable_dla(self)
+            reseed_offsets(self, seed=7)
+            readable_boxes(self.backbone.wh_out, LORE_CELL_HALF)
+            self.backbone.hm_out.load_state_dict(heat)
+
+    db.DBDetector, lore.LORE = ReadableDB, ReadableLORE
+    return cli.main(argv[1:])
+
+
+def cli_table_subprocess(page, heat, want):
+    """`cli table` on one PNG page at the smoke's widths (MGP-STR-base,
+    `LoreConfig()`, `DBConfig()`, on the card) in a fresh process, through
+    `readable_cli_main` so that its models are the smoke's (`heat`, LORE's
+    readable heat head): its JSON must equal `want`, the in-process
+    pipeline's on the same page, with words in some cells. The wall time
+    from launch to exit is a user's cold start (imports, model builds,
+    the kernels' load from the build directory)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "table.png")
+        with open(path, "wb") as f:
+            f.write(png_bytes(page))
+        heat_path = os.path.join(tmp, "heat.pt")
+        torch.save({k: v.cpu() for k, v in heat.items()}, heat_path)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+             "chip_smoke.readable_cli_main(sys.argv[1:]))",
+             heat_path, "table", path, "--variant", "base"],
+            capture_output=True, text=True, timeout=300,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        cold_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"cli table failed: {proc.stderr[-2000:]}")
+    got = json.loads(proc.stdout)
+    rec = {"cold_start_s": cold_s, "equal": got == want,
+           "first_difference": same_result(got, want, exact=True),
+           "cells": len(want["cells"]),
+           "cells_with_words": sum(bool(c["content"]) for c in want["cells"])}
+    require(rec["equal"] and rec["cells"] and rec["cells_with_words"],
+            f"cli table JSON differs from the in-process pipeline: {rec}")
+    return rec
+
+
+def recognize_in_batches(engine, u8, batch_size):
+    """`engine.recognize` over uint8 crops [N, 32, 128, 3] (NumPy or a
+    tensor) in zero-padded batches of `batch_size`, as `TextRecognition`
+    and the HTTP server's batcher form them → [(text, conf, head)] for
+    the N crops."""
+    u8 = torch.as_tensor(u8)
+    out = []
+    for i in range(0, len(u8), batch_size):
+        chunk = u8[i:i + batch_size]
+        batch = torch.zeros((batch_size, *u8.shape[1:]), dtype=torch.uint8,
+                            device=u8.device)
+        batch[:len(chunk)] = chunk
+        out += engine.recognize(batch)[:len(chunk)]
+    return out
+
+
+def http_phase(engine, det_fn, pages, read_pages, batch_size=32):
+    """`RecognitionHTTPServer` on 127.0.0.1 with the engine: 64 concurrent
+    /v1/recognize requests (PNG word crops cut from `pages`) and a
+    /v1/read request for each of `read_pages` (whole pages), each result
+    equal to the engine's own `recognize` on the same crops in batches of
+    the server's shape."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+    from advancedliteratemachinery_tpu_torch.engine.http_serving import (
+        RecognitionHTTPServer)
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        crop_quads_u8, resize_linear_u8)
+    rng = np.random.default_rng(21)
+    crops = []
+    for i in range(64):
+        page = pages[i % len(pages)]
+        h, w = int(rng.integers(24, 48)), int(rng.integers(60, 200))
+        y = int(rng.integers(0, page.shape[0] - h))
+        x = int(rng.integers(0, page.shape[1] - w))
+        crops.append(np.ascontiguousarray(page[y:y + h, x:x + w]))
+    bodies = [png_bytes(c) for c in crops]
+
+    def post(path, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}{path}", data=body,
+            headers={"Content-Type": "image/png"})
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    def direct(u8):
+        return [{"text": t, "confidence": round(float(c), 4), "head": h}
+                for t, c, h in recognize_in_batches(engine, u8, batch_size)]
+
+    srv = RecognitionHTTPServer(engine, batch_size=batch_size,
+                                max_wait_ms=5.0, port=0,
+                                detect_fn=det_fn).start()
+    try:
+        post("/v1/recognize", bodies[0])                        # warm up
+        srv.batcher.stats = {k: 0 for k in srv.batcher.stats}
+        with ThreadPoolExecutor(64) as ex:
+            t0 = time.perf_counter()
+            got = list(ex.map(lambda b: post("/v1/recognize", b), bodies))
+            seconds = time.perf_counter() - t0
+        stats = dict(srv.batcher.stats)
+        t0 = time.perf_counter()
+        reads = [post("/v1/read", png_bytes(p)) for p in read_pages]
+        read_s = (time.perf_counter() - t0) / len(read_pages)
+    finally:
+        srv.stop()
+    resized = np.stack([resize_linear_u8(torch.from_numpy(c)[None],
+                                         (32, 128))[0].numpy()
+                        for c in crops])
+    want = direct(resized)
+    read_equal = []
+    for page, res in zip(read_pages, reads):
+        quads, scores = det_fn(page)
+        u8 = crop_quads_u8(torch.from_numpy(page).cuda(),
+                           np.asarray(quads).reshape(-1, 4, 2)).cpu().numpy()
+        ref = direct(u8)
+        read_equal.append(
+            [(w["text"], w["confidence"]) for w in res["words"]]
+            == [(r["text"], r["confidence"]) for r in ref])
+    rec = {"recognize_requests": 64, "requests_per_s": 64 / seconds,
+           "batches": stats["batches"], "items": stats["items"],
+           "padded_slots": stats["padded_slots"],
+           "recognize_equal": got == want,
+           "read_words": [len(r["words"]) for r in reads],
+           "read_equal": read_equal, "read_s_per_page": read_s}
+    require(rec["recognize_equal"] and all(read_equal)
+            and stats["items"] == 64,
+            f"HTTP results differ from direct recognize: {rec}")
+    return rec
+
+
+def docxchain_phase(card):
+    """The document pipelines, the seventh path: DocXLayout
+    (`DocXLayoutConfig()`), LORE (`LoreConfig()` on 512² resizes), DB
+    (`DBConfig()` at 640²) and MGP-STR-base, in bf16, on 8 seeded
+    1024x768 document pages and 8 table pages, through
+    `GeneralTextReading`, `TableParsing` and `DocumentStructurization`.
+    `card` (nvidia-smi's name and power limit) goes beside its numbers."""
+    from advancedliteratemachinery_tpu_torch.models.db import (
+        make_db_detect_fn)
+    from advancedliteratemachinery_tpu_torch.models.lore import (
+        make_table_predict_fn)
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        crop_quads_u8, resize_linear_u8)
+    t_phase = time.perf_counter()
+    docs = document_pages(DOC_PAGES)
+    tables = table_pages(DOC_PAGES)
+    cfg = MGPSTRConfig(variant="base")
+
+    def build(policy, device):
+        db = DBDetector(DBConfig(), policy=policy, device=device, seed=1)
+        readable_db(db)
+        lore = LORE(LoreConfig(), policy=policy, device=device, seed=0)
+        docx = DocXLayout(DocXLayoutConfig(), policy=policy, device=device,
+                          seed=0)
+        mgp = MGPSTR(cfg, policy=policy, device=device, seed=0)
+        return db, lore, docx, mgp
+
+    db, lore, docx, mgp = build(DEFAULT_POLICY, None)
+    readable_dla(lore)
+    readable_dla(docx)
+    reseed_offsets(lore, seed=7)
+    readable_boxes(lore.backbone.wh_out, LORE_CELL_HALF)
+    readable_boxes(docx.backbone.wh_out, LAYOUT_REGION_HALF)
+    engine = MGPSTRInference(mgp, CharCodec())
+
+    def lore_input(page):           # what make_table_predict_fn feeds
+        return resize_linear_u8(torch.from_numpy(page).cuda()[None],
+                                (TABLE_INPUT,) * 2).float() / 255.0
+
+    def docx_input(page):           # what make_layout_predict_fn feeds
+        return torch.from_numpy(page).cuda()[None].float() / 255.0
+
+    @torch.inference_mode()
+    def lore_heat(page):
+        return lore(lore_input(page))["hm"][..., 0]
+
+    @torch.inference_mode()
+    def docx_heat(page):
+        return docx(docx_input(page))["hm"][..., 0]
+
+    t0 = time.perf_counter()
+    readable = {
+        "table_fit_r2": fit_heat_readout(
+            lore.backbone, [lore_input(p) for p in tables], tables, blur=3),
+        "layout_fit_r2": fit_heat_readout(
+            docx.backbone, [docx_input(p) for p in docs], docs, blur=9)}
+    readable.update({
+        "table_cells": lift_heat_bias(
+            lore.backbone.hm_out, 0, lore_heat, tables, TABLE_CELLS, 0.3,
+            True, lore.config.top_k),
+        "layout_regions": lift_heat_bias(
+            docx.backbone.hm_out, 0, docx_heat, docs, LAYOUT_REGIONS,
+            docx.config.score_threshold, False, docx.config.top_k)})
+    det_fn = make_db_detect_fn(db)
+    table_fn = make_table_predict_fn(lore, input_size=TABLE_INPUT)
+    layout_fn = make_layout_predict_fn(docx)
+    words = [len(det_fn(p)[0]) for p in np.concatenate([docs, tables])]
+    cells = [len(table_fn(p)["polygons"]) for p in tables]
+    regions = [len(layout_fn(p)[0]) for p in docs]
+    dense = dense_page()
+    dense_words = len(det_fn(dense)[0])
+    readable.update({"words_per_page": words, "cells_per_table": cells,
+                     "regions_per_page": regions,
+                     "dense_page_words": dense_words,
+                     "seconds": time.perf_counter() - t0})
+    emit({"phase": "docxchain_readable", **readable})
+    require(all(DOC_WORDS[0] <= n <= DOC_WORDS[1] for n in words)
+            and DENSE_WORDS[0] <= dense_words <= DENSE_WORDS[1]
+            and all(TABLE_CELLS[0] <= n <= TABLE_CELLS[1] for n in cells)
+            and all(LAYOUT_REGIONS[0] <= n <= LAYOUT_REGIONS[1]
+                    for n in regions),
+            f"pages not readable as required: {readable}")
+
+    pipes = doc_pipelines(engine, det_fn, table_fn, layout_fn)
+    inputs = {"reading": docs, "table": tables, "structurization": docs}
+
+    # launch counts per path, each read just after its one page; the
+    # dense page takes several recognizer forwards
+    launches = {}
+    for key, name, page in (
+            ("reading", "reading", docs[0]),
+            ("reading_dense", "reading", dense),
+            ("table", "table", tables[0]),
+            ("structurization", "structurization", docs[0]),
+            ("structurization_dense", "structurization", dense)):
+        fwd = -(-len(det_fn(page)[0]) // 64)
+        _, counts = counted(lambda: pipes[name](page))
+        want = {"fused_qkv_attention": 12 * fwd,
+                "vocab_greedy_decode": 2 * fwd}
+        if name == "table":
+            want["deform_conv"] = 16
+        launches[key] = {**counts, "forwards": fwd}
+        require(counts == want,
+                f"{key}: launches {counts}, expected {want}")
+
+    # the dense page's strings, batch by batch, are the engine's own on the
+    # same crops in the same zero-padded batches of 64
+    quads = np.asarray([order_point(q) for q in det_fn(dense)[0]],
+                       np.float32)
+    want = recognize_in_batches(engine, crop_quads_u8(
+        torch.from_numpy(dense).cuda(), quads), 64)
+    lats = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        got = pipes["reading"](dense)["instances"]
+        lats.append((time.perf_counter() - t1) * 1e3)
+    dense_rec = {"words": len(got), "forwards": -(-len(got) // 64),
+                 "p50_ms": float(np.median(lats)),
+                 "equal": [(w["text"], w["confidence"]) for w in got]
+                 == [(t, c) for t, c, _ in want]}
+    require(dense_rec["equal"] and len(got) == dense_words,
+            f"dense page: strings differ from the engine's: {dense_rec}")
+
+    # throughput and latency, 2 rounds over the 8 pages
+    speed = {}
+    for name, pipe in pipes.items():
+        pipe(inputs[name][0])                               # warm up
+        lats = []
+        t0 = time.perf_counter()
+        for _ in range(2):
+            for page in inputs[name]:
+                t1 = time.perf_counter()
+                pipe(page)
+                lats.append((time.perf_counter() - t1) * 1e3)
+        speed[name] = {"pages_per_s": len(lats) / (time.perf_counter() - t0),
+                       "p50_ms": float(np.percentile(lats, 50)),
+                       "p99_ms": float(np.percentile(lats, 99))}
+
+    # stage times by CUDA events over 3 pages a path
+    clock = StageClock()
+    timed = doc_pipelines(engine, det_fn, table_fn, layout_fn, clock=clock)
+    stages = {}
+    for name, pipe in timed.items():
+        clock.calls = []
+        for page in inputs[name][:3]:
+            clock.start()
+            pipe(page)
+            clock.mark("assembly")
+        stages[name] = clock.stage_ms()
+    emit({"phase": "docxchain", "card": card, "pages": DOC_PAGES,
+          "page_hw": DOC_HW,
+          "table_input": TABLE_INPUT, "speed": speed, "stage_ms": stages,
+          "launches": launches, "dense_page": dense_rec,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+    # f32 on the card against the port on the CPU, doc page 0 and table
+    # page 0: equal results, no launch
+    f32 = {}
+    for device in ("cuda", "cpu"):
+        db32, lore32, docx32, mgp32 = build(FP32_POLICY, device)
+        lore32.load_state_dict(lore.state_dict())
+        docx32.load_state_dict(docx.state_dict())
+        eng32 = MGPSTRInference(mgp32, CharCodec(),
+                                input_dtype=torch.float32, device=device)
+        fns = (make_db_detect_fn(db32),
+               make_table_predict_fn(lore32, input_size=TABLE_INPUT),
+               make_layout_predict_fn(docx32))
+        p32 = doc_pipelines(eng32 if device == "cuda" else
+                            MemoRecognizer(eng32), *fns, device=device)
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: {
+            name: json_form(pipe(inputs[name][0]))
+            for name, pipe in p32.items()})
+        f32[device] = {"results": res, "launches": counts,
+                       "seconds": time.perf_counter() - t0,
+                       "models": (db32, lore32, docx32, eng32, fns)}
+    diffs = {name: same_result(f32["cuda"]["results"][name],
+                               f32["cpu"]["results"][name])
+             for name in pipes}
+    res = f32["cuda"]["results"]
+    f32_rec = {"diffs": diffs, "launches": f32["cuda"]["launches"],
+               "seconds": {d: f32[d]["seconds"] for d in f32},
+               "words": len(res["reading"]["instances"]),
+               "cells": len(res["table"]["cells"]),
+               "cells_with_words": sum(bool(c["content"])
+                                       for c in res["table"]["cells"]),
+               "regions": len(res["structurization"]),
+               "regions_with_words": sum(bool(r["text_list"])
+                                         for r in res["structurization"])}
+    emit({"phase": "docxchain_f32_vs_cpu", **f32_rec})
+    require(not any(diffs.values()) and f32_rec["launches"] == {},
+            f"f32 pipelines on the card differ from the CPU: {f32_rec}")
+
+    # bf16 decisions against f32 on the card: every place they part must
+    # be a rounding flip, and the bf16 maps and logits near f32's
+    db32, lore32, docx32, eng32, (det32, _, _) = f32["cuda"]["models"]
+    del f32
+    # the bound holds the features the heads read (the trunk and neck, K3
+    # in LORE's) and the recognizer's logits; the readable heat maps
+    # amplify their features' small variation and are reported only
+    bf = {"rel_rms": {}, "maps_rel_rms": {}, "flips": {}}
+
+    def worst(table, key, value):
+        table[key] = max(table.get(key, 0.0), value)
+
+    with torch.inference_mode():
+        for i, page in enumerate(docs):
+            x = docx_input(page)
+            m16, m32 = docx(x), docx32(x)
+            worst(bf["rel_rms"], "layout_features", rel_rms(
+                head_features(docx.backbone, x, "hm"),
+                head_features(docx32.backbone, x, "hm")))
+            for head in ("hm", "cls"):
+                worst(bf["maps_rel_rms"], f"layout_{head}",
+                      rel_rms(m16[head], m32[head]))
+            l16, l32 = m16["hm"][0, ..., 0], m32["hm"][0, ..., 0]
+            thr = docx.config.score_threshold
+            flips, both_kept = heat_flips(l16, l32, thr, False)
+            bf["flips"][f"layout_keep_{i}"] = flips
+            bf["flips"][f"layout_class_{i}"] = argmax_flips(
+                m16["cls"][0], m32["cls"][0], both_kept)
+            if i == 0:
+                # control: the bf16 map with its firmest f32 keep decision
+                # dropped below the threshold, a fault the gate must see
+                firm = torch.where(heat_keep(l32[None], thr, False)[0][0],
+                                   keep_margins(l32, thr), -1.0)
+                pos = divmod(int(firm.argmax()), firm.shape[1])
+                faulty = l16.clone()
+                faulty[pos] = float(np.log(thr / (1.0 - thr))) - 1.0
+                control_flip = heat_flips(faulty, l32, thr, False)[0][
+                    "worst_margin_over_rms"]
+        for i, page in enumerate(tables):
+            x = lore_input(page)
+            m16, m32 = lore(x), lore32(x)
+            f32_feat = head_features(lore32.backbone, x, "hm")
+            worst(bf["rel_rms"], "table_features", rel_rms(
+                head_features(lore.backbone, x, "hm"), f32_feat))
+            # the same bf16 model with its DCNs on the plain version, which
+            # has K3's rounding points: bf16's own error here
+            dcn_module.supports_deform_conv = lambda *a: False
+            try:
+                worst(bf["rel_rms"], "table_features_plain_dcn", rel_rms(
+                    head_features(lore.backbone, x, "hm"), f32_feat))
+            finally:
+                dcn_module.supports_deform_conv = supports_deform_conv
+            # controls: K3 fed offsets shifted by a fraction of a pixel
+            for shift in K3_CONTROL_SHIFTS:
+                dcn_module.deform_conv2d = (
+                    lambda x_, off, *a, d=shift: deform_conv2d(
+                        x_, off + d, *a))
+                try:
+                    worst(bf["rel_rms"], f"table_features_k3_shift_{shift}",
+                          rel_rms(head_features(lore.backbone, x, "hm"),
+                                  f32_feat))
+                finally:
+                    dcn_module.deform_conv2d = deform_conv2d
+            worst(bf["maps_rel_rms"], "table_hm",
+                  rel_rms(m16["hm"], m32["hm"]))
+            bf["flips"][f"table_keep_{i}"] = heat_flips(
+                m16["hm"][0, ..., 0], m32["hm"][0, ..., 0], 0.3, True)[0]
+        boxes = []      # [bf16 boxes, f32 boxes, the farthest bf16 box
+        for page in np.concatenate([docs, tables]):  # from its nearest f32
+            q16, _ = det_fn(page)                    # box, pixels]
+            q32, _ = det32(page)
+            far = (np.abs(q16[:, None] - q32[None]).max(-1).min(1).max()
+                   if len(q16) and len(q32) else 0.0)
+            boxes.append([len(q16), len(q32), float(far)])
+        # strings: the recognizer's char decisions on the f32 crops
+        page = docs[0]
+        quads = np.asarray([order_point(q) for q in det32(page)[0]],
+                           np.float32)
+        u8 = crop_quads_u8(torch.from_numpy(page).cuda(), quads)
+        l16 = engine.model(normalize_crops(u8))["char"][:, 1:].float()
+        l32 = eng32.model(normalize_crops(u8, torch.float32))["char"][:, 1:]
+        V = engine.true_vocab["char"]
+        bf["rel_rms"]["rec_char"] = rel_rms(l16[..., :V], l32[..., :V])
+        bf["flips"]["rec_char"] = argmax_flips(l16[..., :V], l32[..., :V])
+        s16 = [t for t, _, _ in engine.recognize(u8)]
+        s32 = [t for t, _, _ in eng32.recognize(u8)]
+        bf["strings_equal"] = [sum(a == b for a, b in zip(s16, s32)),
+                               len(s32)]
+    bf["boxes_bf16_f32_maxdiff"] = boxes
+    worst = max([f.get("worst_margin_over_rms", f.get("worst_gap_over_rms",
+                                                      0.0))
+                 for f in bf["flips"].values()])
+    bf["worst_flip_ratio"] = worst
+    r = bf["rel_rms"]
+    plain = max(r["table_features_plain_dcn"], 1e-3)
+    bf["k3_over_plain"] = r["table_features"] / plain
+    bf["controls"] = {
+        "layout_firmest_keep_dropped": control_flip,
+        **{f"k3_shift_{d}_over_plain": r[f"table_features_k3_shift_{d}"]
+           / plain for d in K3_CONTROL_SHIFTS}}
+    emit({"phase": "docxchain_bf16_vs_f32", "tol_rel_rms": DOC_BF16_RTOL,
+          "tol_k3_over_plain": DOC_K3_RATIO,
+          "tol_flip_over_rms": FLIP_RMS_BOUND, **bf})
+    require(worst <= FLIP_RMS_BOUND and all(b[0] == b[1] for b in boxes)
+            and max(r["layout_features"], r["rec_char"]) <= DOC_BF16_RTOL
+            and bf["k3_over_plain"] <= DOC_K3_RATIO,
+            f"bf16 pipelines part from f32 beyond rounding: {bf}")
+    require(bf["controls"][f"k3_shift_{K3_CONTROL_SHIFTS[0]}_over_plain"]
+            > DOC_K3_RATIO,
+            f"the K3 gate passes a half-pixel sampling fault: {bf}")
+    del db32, lore32, docx32, eng32, det32
+    torch.cuda.empty_cache()
+
+    ref = docxlayout_reference_file(docx)
+    emit({"phase": "docxchain_reference_file", **ref})
+    cli_rec = cli_table_subprocess(
+        tables[0], lore.backbone.hm_out.state_dict(),
+        json_form(pipes["table"](tables[0])))
+    emit({"phase": "docxchain_cli", "card": card, **cli_rec})
+    http = http_phase(engine, det_fn, docs, [docs[0], docs[1], dense])
+    emit({"phase": "docxchain_http", "card": card, **http})
+    emit({"phase": "docxchain_seconds", "card": card,
+          "seconds": time.perf_counter() - t_phase})
+    del engine, db, lore, docx, mgp
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3004,6 +4081,8 @@ def main() -> int:
     mark("levocr")
     omniparser_phase()
     mark("omniparser")
+    docxchain_phase(smi)
+    mark("docxchain")
 
     bwd_err = 0.0
     # both sides of the 64-row tiles and of a 16-row short last chunk, one

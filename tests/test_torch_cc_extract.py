@@ -89,6 +89,25 @@ def test_extract_boxes_match(max_boxes):
                                atol=2e-3)
 
 
+def test_extract_boxes_uncapped_keeps_every_component():
+    """`max_boxes=None` (the document pipelines' detect function): a page
+    of 150 components, more than two 64-slot batches, gives a box for each,
+    the top rows too, and the slots of an explicit K of the same size."""
+    prob = np.full((2, 72, 112), 0.05, np.float32)
+    for i in range(10):
+        for j in range(15):
+            prob[0, 2 + 7 * i:6 + 7 * i, 2 + 7 * j:6 + 7 * j] = \
+                0.7 + 0.001 * (15 * i + j)
+    prob[1, 10:20, 10:40] = 0.9
+    q, s, v = extract_boxes_device(torch.from_numpy(prob), max_boxes=None)
+    assert q.shape[1] == 192 and v.numpy().sum(1).tolist() == [150, 1]
+    tops = np.sort(q.numpy()[0][v.numpy()[0]][:, :, 1].min(1))
+    assert tops[0] < 2.0                 # the first row of squares is in
+    for got, want in zip((q, s, v), extract_boxes_device(
+            torch.from_numpy(prob), max_boxes=192)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 def test_crop_rects_and_normalize_match():
     rng = np.random.default_rng(1)
     pages = rng.integers(0, 256, (2, 80, 300, 3), dtype=np.uint8)

@@ -96,6 +96,7 @@ def assert_same_state(got, want):
 
 
 def test_chip_smoke_golden_configs_are_the_tests():
+    import test_torch_docxlayout
     import test_torch_levocr
     import test_torch_omniparser
     assert chip_smoke.GOLDEN_MGP_STR == MGP_CFG
@@ -104,9 +105,11 @@ def test_chip_smoke_golden_configs_are_the_tests():
     assert chip_smoke.GOLDEN_LEVOCR == test_torch_levocr.GOLDEN_CFG
     assert (chip_smoke.GOLDEN_OMNIPARSER
             == test_torch_omniparser.golden_configs()[1])
+    assert chip_smoke.GOLDEN_DOCXLAYOUT == test_torch_docxlayout.GOLDEN_CFG
     assert chip_smoke.GOLDEN_TOL == {
         f: G.TOLERANCES[f][0] for f in ("mgp_str", "lore", "lister",
-                                        "levocr", "omniparser")}
+                                        "levocr", "omniparser",
+                                        "docxlayout")}
 
 
 @pytest.mark.parametrize("wrap", ["model", "state_dict", "net", None])

@@ -1,5 +1,6 @@
-"""The port imports neither JAX nor the JAX package, nor `regex` or
-`safetensors` (the card's machine has none of them), and importing it
+"""The port imports neither JAX nor the JAX package, nor `regex`,
+`safetensors`, PIL or cv2 (the card's machine has none of them), and
+importing it
 builds no kernel: every module of `advancedliteratemachinery_tpu_torch` and
 the module-level code of `chip_smoke.py` and `k4_repeats.py` import in a
 process where all of them are blocked."""
@@ -24,19 +25,22 @@ def test_port_imports_without_jax():
     assert f"{PKG}.codecs.subword" in modules
     for m in ("models.abinet", "models.levocr", "ops.levenshtein",
               "codecs.coords", "models.swin", "models.omniparser",
-              "engine.serving", "eval.spotting_eval"):
+              "engine.serving", "eval.spotting_eval", "models.docxlayout",
+              "pipelines", "pipelines.modules", "pipelines.document",
+              "pipelines.file_loading", "engine.http_serving", "cli"):
         assert f"{PKG}.{m}" in modules
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in ("jax", "jaxlib", "flax", "advancedliteratemachinery_tpu",
-                     "regex", "safetensors"):
+                     "regex", "safetensors", "PIL", "cv2"):
             sys.modules[name] = None          # any import of them raises
         for m in {modules!r}:
             importlib.import_module(m)
         import chip_smoke, k4_repeats
         from {PKG}.ops import _kernels
         assert not _kernels._LIBS and not any(_kernels.LAUNCHES.values())
-        assert not any(m.startswith(("jax", "flax", "regex", "safetensors"))
+        assert not any(m.startswith(("jax", "flax", "regex", "safetensors",
+                                     "PIL", "cv2"))
                        and sys.modules[m] for m in sys.modules)
         print("ok", len({modules!r}))
     """)

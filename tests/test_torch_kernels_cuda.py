@@ -710,3 +710,108 @@ def test_spotting_service_on_card(gen, no_tf32):
         assert g["points"].tolist() == w["points"]
         assert [list(p) for p in g["polygons"]] == w["polygons"]
         assert [list(r) for r in g["rec_tokens"]] == w["words"]
+
+
+def test_image_ops_on_card_match_cpu(gen):
+    """The pipelines' cv2-semantics image ops on the card against the CPU:
+    the resize is integer arithmetic (equal bit for bit), the quad crops
+    take float taps (within one uint8 level)."""
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        crop_quads_u8, resize_each_u8, resize_linear_u8)
+    from advancedliteratemachinery_tpu_torch.pipelines.modules import (
+        order_point)
+    rng = np.random.default_rng(20)
+    page = torch.from_numpy(rng.integers(0, 256, (300, 400, 3),
+                                         dtype=np.uint8))
+    for hw in ((32, 128), (640, 640), (512, 512), (150, 199), (301, 801)):
+        assert torch.equal(resize_linear_u8(page[None].cuda(), hw).cpu(),
+                           resize_linear_u8(page[None], hw)), hw
+    # crops of their own sizes, resized together on the card, as the HTTP
+    # server's batches are: each equal to its own resize on the CPU
+    crops = [page[:h, :w].numpy() for h, w in ((24, 60), (47, 199),
+                                                (32, 128), (5, 300))]
+    got = resize_each_u8(crops, (32, 128), "cuda", batch=6)
+    assert got.device.type == "cuda" and got.shape == (6, 32, 128, 3)
+    for c, g in zip(crops, got.cpu()):
+        assert torch.equal(g, resize_linear_u8(torch.from_numpy(c)[None],
+                                               (32, 128))[0])
+    assert not got[len(crops):].any()
+    centers = rng.uniform(40, 260, (40, 1, 2))
+    quads = np.stack([order_point(q) for q in (
+        centers + rng.uniform(-40, 40, (40, 4, 2))).reshape(40, 8)])
+    got = crop_quads_u8(page.cuda(), quads).cpu()
+    want = crop_quads_u8(page, quads)
+    assert got.shape == want.shape == (40, 32, 128, 3)
+    assert (got.int() - want.int()).abs().max().item() <= 1
+
+
+def test_docxlayout_on_card(gen, no_tf32):
+    """DocXLayout (DLA-v0 neck, no deformable conv) launches no port
+    kernel in bf16 or f32, and in f32 on the card agrees with the CPU."""
+    from advancedliteratemachinery_tpu_torch.models.docxlayout import (
+        DocXLayout, DocXLayoutConfig)
+    cfg = DocXLayoutConfig(dla=DLAConfig(channels=(8, 16, 32, 64, 64, 128)),
+                           head_conv=32)
+    page = torch.rand(1, 256, 192, 3, generator=torch.Generator()
+                      .manual_seed(1))
+    gpu = DocXLayout(cfg, policy=FP32_POLICY, seed=2)
+    cpu = DocXLayout(cfg, policy=FP32_POLICY, device="cpu", seed=2)
+    bf16 = DocXLayout(cfg, seed=2)
+    before = dict(_kernels.LAUNCHES)
+    with torch.inference_mode():
+        got = {k: v.cpu() for k, v in gpu.infer(page.cuda()).items()}
+        maps = {k: v.cpu() for k, v in gpu(page.cuda()).items()}
+        bf16.infer(page.cuda())
+        want, want_maps = cpu.infer(page), cpu(page)
+    torch.cuda.synchronize()
+    assert dict(_kernels.LAUNCHES) == before
+    for k in want_maps:
+        assert _rel(maps[k], want_maps[k]) <= 1e-4, k
+    assert torch.equal(got["detections"][..., 9], want["detections"][..., 9])
+    for k in want:
+        assert _rel(got[k], want[k]) <= 1e-4, k
+
+
+def test_document_pipelines_on_card_match_cpu(gen, no_tf32):
+    """GeneralTextReading, TableParsing and DocumentStructurization in f32
+    on the card (no launch) against the CPU on a seeded page: small
+    models, the DB made readable by chip_smoke's `readable_db`."""
+    import chip_smoke as cs
+    from advancedliteratemachinery_tpu_torch.models.db import (
+        DBConfig, DBDetector, make_db_detect_fn)
+    from advancedliteratemachinery_tpu_torch.models.docxlayout import (
+        DocXLayout, DocXLayoutConfig, make_layout_predict_fn)
+    from advancedliteratemachinery_tpu_torch.models.lore import (
+        LORE, LoreConfig, make_table_predict_fn)
+    dla = DLAConfig(channels=(4, 8, 16, 16, 32, 32))
+    lore_cfg = LoreConfig(
+        backbone=DLASegConfig(dla=dla, head_conv=16, heads=(
+            ("hm", 2), ("st", 8), ("wh", 8), ("ax", 16), ("cr", 16),
+            ("reg", 2))), input_size=16, hidden_size=16, tsfm_layers=1,
+        stacking_layers=1, num_heads=2)
+    rec_cfg = MGPSTRConfig(vit=ViTConfig(embed_dim=64, depth=1,
+                                         num_heads=1))
+    page = cs.document_pages(1, (256, 192), seed=3)[0]
+    results, launches = {}, {}
+    for device in ("cuda", "cpu"):
+        db = DBDetector(DBConfig(width=16, fpn_dim=32, head_dim=16),
+                        policy=FP32_POLICY, device=device)
+        cs.readable_db(db)
+        lore = LORE(lore_cfg, policy=FP32_POLICY, device=device, seed=1)
+        docx = DocXLayout(DocXLayoutConfig(dla=dla, head_conv=16),
+                          policy=FP32_POLICY, device=device, seed=2)
+        engine = MGPSTRInference(MGPSTR(rec_cfg, policy=FP32_POLICY,
+                                        device=device, seed=3), CharCodec(),
+                                 input_dtype=torch.float32, device=device)
+        pipes = cs.doc_pipelines(engine, make_db_detect_fn(db),
+                                 make_table_predict_fn(lore, input_size=128),
+                                 make_layout_predict_fn(docx),
+                                 device=device)
+        before = dict(_kernels.LAUNCHES)
+        results[device] = {n: cs.json_form(p(page)) for n, p in pipes.items()}
+        launches[device] = dict(_kernels.LAUNCHES) == before
+    assert launches["cuda"]
+    assert len(results["cpu"]["reading"]["instances"]) > 5
+    for name in results["cpu"]:
+        assert cs.same_result(results["cuda"][name],
+                              results["cpu"][name]) is None, name

@@ -328,3 +328,49 @@ def test_convert_rejects_mismatched_lore_trees(lore_pair):
         leaf["kernel"] = leaf["kernel"][..., :-1]
         with pytest.raises(ValueError, match=key):
             flax_state_dict(tm, bad, stats)
+
+
+def test_table_predict_fn_matches(lore_pair, monkeypatch):
+    """`make_table_predict_fn` on a 96x80 page: the JAX function runs its
+    own code (cv2 resize, post-processing) with its `jax.jit` pointed at
+    the fixture's outputs for page 0, and the port's runs with a model
+    that returns the same outputs. The port's model must receive the
+    page resized as cv2 does (within one uint8 level over 255), and both
+    sides must keep the same cells, map them back to the same polygons
+    and round the same logical coordinates."""
+    import cv2
+
+    import advancedliteratemachinery_tpu.models.lore as jlore
+    from advancedliteratemachinery_tpu_torch.models.lore import (
+        make_table_predict_fn)
+
+    want, *_ = lore_pair
+    page = np.random.default_rng(7).integers(0, 256, (96, 80, 3),
+                                             dtype=np.uint8)
+    one = {k: v[:1] for k, v in want.items()}
+    thresh = float(np.median(one["scores"]))
+    monkeypatch.setattr(jlore.jax, "jit", lambda f: lambda v, x: one)
+    jout = jlore.make_table_predict_fn(None, None, input_size=64,
+                                       score_thresh=thresh)(page)
+
+    class Stub(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.w = torch.nn.Parameter(torch.zeros(1))
+            self.seen = []
+
+        def infer(self, x):
+            self.seen.append(x)
+            return {k: torch.from_numpy(np.array(v)) for k, v in one.items()}
+
+    stub = Stub()
+    tout = make_table_predict_fn(stub, input_size=64,
+                                 score_thresh=thresh)(page)
+    resized = cv2.resize(page, (64, 64)).astype(np.float32) / 255.0
+    assert stub.seen[0].shape == (1, 64, 64, 3)
+    assert np.abs(stub.seen[0][0].numpy() - resized).max() <= 1.0 / 255 + 1e-6
+    assert 0 < len(jout["polygons"]) < len(one["scores"][0])
+    np.testing.assert_array_equal(tout["logi_coords"], jout["logi_coords"])
+    assert tout["polygons"].dtype == jout["polygons"].dtype == np.float32
+    np.testing.assert_allclose(tout["polygons"], jout["polygons"],
+                               rtol=1e-6, atol=1e-5)

@@ -9,6 +9,7 @@ and some words end by EOS. Every wait on a thread or a Future has a
 timeout of its own."""
 
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -97,6 +98,33 @@ class TestContinuousBatcher:
             b.stop()
         assert not any(t.is_alive() for t in threads)
         assert results == {i: float(i) for i in range(10)}
+
+    def test_jax_signature_uint8_items_and_the_wait(self):
+        """The JAX batcher's defaults (max_wait_ms 5, uint8 items): a
+        uint8 crop reaches infer_fn as uint8, and a partial batch waits
+        max_wait_ms for co-travelers, which join it."""
+        d = ContinuousBatcher(echo_sum, batch_size=2, item_shape=(1,))
+        assert d.dtype == np.uint8 and d.max_wait == pytest.approx(0.005)
+        seen = []
+
+        def infer(batch):
+            seen.append((batch.dtype, time.perf_counter()))
+            return echo_sum(batch)
+
+        b = ContinuousBatcher(infer, batch_size=4, item_shape=(2, 2),
+                              max_wait_ms=300.0).start()
+        try:
+            t0 = time.perf_counter()
+            first = b.submit(np.full((2, 2), 255, np.uint8))
+            time.sleep(0.05)
+            second = b.submit(np.full((2, 2), 1, np.uint8))
+            out = [first.result(timeout=WAIT_S),
+                   second.result(timeout=WAIT_S)]
+        finally:
+            b.stop()
+        assert out == [1020.0, 4.0]          # 4 x 255: no wrap, no cast
+        assert [dt for dt, _ in seen] == [np.uint8]
+        assert seen[0][1] - t0 >= 0.29
 
 
 CFG = omniparser.OmniParserConfig(
