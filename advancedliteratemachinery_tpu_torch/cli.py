@@ -13,11 +13,12 @@ The arguments are the JAX CLI's. Models run on the card unless
 torch checkpoint of the recognizer through `--torch-ckpt`. Three JAX
 arguments are refused with a clear error: `--ckpt` (the JAX package's
 Orbax checkpoints), `--visualize` and `--formula-onnx`. Pages and crops
-are PNG or `.npy` files (`pipelines/file_loading.py`).
+are PNG (any bit depth, interlaced or not), baseline JPEG or `.npy`
+files (`pipelines/file_loading.py`).
 
-`read`, `structurize`, `table` and `convert` detect text with DB and
-`models/db.py` `make_db_detect_fn`, whose boxes come from the device
-extraction (`ops/cc_extract.py`), not the JAX CLI's cv2 contours.
+`read`, `structurize`, `table` and `convert` detect text as the JAX CLI
+does: DB, then the host `extract_boxes` on its probability map
+(`models/db.py` `make_db_detect_fn`).
 `structurize` and `convert` take the whole page as one "plain text"
 region, as the JAX commands do; DocXLayout reaches a pipeline through
 `models/docxlayout.py` `make_layout_predict_fn` + `LayoutAnalysis`.

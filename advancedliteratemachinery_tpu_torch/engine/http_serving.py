@@ -13,8 +13,9 @@ Endpoints:
                           "det_score", "quad"}, ...]} (detector + batched
                           recognition)
 
-Bodies: raw image bytes (PNG or `.npy`, decoded by
-`pipelines/file_loading.py` without PIL), or JSON `{"image_b64": "..."}`,
+Bodies: raw image bytes (PNG, baseline JPEG or `.npy`, told apart by
+their magic bytes and decoded by `pipelines/file_loading.py` without
+PIL), or JSON `{"image_b64": "..."}`,
 of at most MAX_BODY_BYTES (a larger one is refused, 413, unread). Word
 crops go into the batcher as they were decoded; each batch goes up to the
 engine's device and is resized there to the recognizer's shape at once

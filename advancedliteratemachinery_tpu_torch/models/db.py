@@ -9,19 +9,17 @@ stem is a TPU rewrite of an ordinary 7x7 stride-2 convolution over the same
 (7, 7, C, F) kernel, and is one `conv2d` here. Pages come in NHWC, as in the
 JAX package, and the network runs in NCHW inside.
 
-`make_db_detect_fn` is the document pipelines' detect function (the JAX
-CLI's `_db_detect_fn`) with one departure: the JAX CLI extracts boxes on
-the host with cv2 contours (`extract_boxes`), which the card's machine
-cannot run, so this one takes `ops/cc_extract.py` `extract_boxes_device`,
-the JAX package's own device path, with no cap on the boxes (as
-`extract_boxes` has none). The two give different box sets where
-components spiral (see `ops/cc_extract.py`).
+`extract_boxes` is the JAX package's host DB post-processing without cv2:
+the cv2 calls it makes (contours, min-area rectangles, polygon fill) are
+`ops/contours.py`'s. `make_db_detect_fn` is the document pipelines'
+detect function, the JAX CLI's `_db_detect_fn`: the page resized on the
+device, the probability map read back once, boxes from `extract_boxes`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple, Union
+from typing import Dict, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,8 +31,9 @@ from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy)
 from advancedliteratemachinery_tpu_torch.models.layers import (
     BN_EPS, batch_norm, conv2d, init_params)
-from advancedliteratemachinery_tpu_torch.ops.cc_extract import (
-    extract_boxes_device)
+from advancedliteratemachinery_tpu_torch.ops.contours import (
+    arc_length, box_points, contour_area, fill_poly_window, find_contours,
+    min_area_rect)
 from advancedliteratemachinery_tpu_torch.ops.image import (
     as_device_tensor, resize_linear_u8)
 
@@ -149,16 +148,93 @@ class DBDetector(nn.Module):
         return {"prob": torch.sigmoid(h.float()).permute(0, 2, 3, 1)}
 
 
+# the elements NumPy's reductions take at a time (np.getbufsize())
+_NP_BUFSIZE = 8192
+
+
+def _page_sum_f32(window: np.ndarray, y0: int, x0: int, H: int,
+                  W: int) -> np.float32:
+    """`product.sum()` of a float32 [H, W] product that is zero outside
+    `window` (placed at row y0, column x0), bit for bit as NumPy sums the
+    page: it reduces the flat page 8192 elements at a time (each buffer
+    summed pairwise) and adds the buffers in turn. Buffers outside the
+    window's rows add an exact 0, so only those under its rows are
+    summed, by NumPy itself."""
+    h, w = window.shape
+    lo = y0 * W // _NP_BUFSIZE * _NP_BUFSIZE
+    hi = min(-(-(y0 + h) * W // _NP_BUFSIZE) * _NP_BUFSIZE, H * W)
+    slab = np.zeros(hi - lo, np.float32)
+    slab[y0 * W - lo:(y0 + h) * W - lo].reshape(h, W)[:, x0:x0 + w] = window
+    total = np.float32(0)
+    for at in range(0, len(slab), _NP_BUFSIZE):
+        total = np.float32(total + slab[at:at + _NP_BUFSIZE].sum())
+    return total
+
+
+def extract_boxes(prob_map: np.ndarray, bin_thresh: float = 0.3,
+                  box_thresh: float = 0.6, unclip_ratio: float = 1.5,
+                  min_size: int = 3) -> Tuple[np.ndarray, np.ndarray]:
+    """prob map [H, W] float32 → (quads [N, 8] float32, scores [N]), by
+    score descending: the JAX `models/db.py` `extract_boxes`. Binarize,
+    take every contour (holes' too) with 4 or more points, its min-area
+    rectangle if both sides reach `min_size`, the mean probability inside
+    the rectangle's filled integer polygon as its score, then unclip the
+    rectangle by area · `unclip_ratio` / perimeter along its centre-vertex
+    directions. The JAX function fills a page-sized mask per contour and
+    sums the page; this one fills the polygon's bounding window and sums
+    the rows under it as NumPy sums the page (`_page_sum_f32`), so scores,
+    and the order of tied scores, are the JAX function's bit for bit."""
+    prob_map = np.asarray(prob_map, np.float32)
+    binary = (prob_map > bin_thresh).astype(np.uint8)
+    boxes: List[np.ndarray] = []
+    scores: List[float] = []
+    H, W = prob_map.shape
+    for cnt in find_contours(binary):
+        if len(cnt) < 4:
+            continue
+        rect = min_area_rect(cnt)
+        if min(rect[1]) < min_size:
+            continue
+        box = box_points(rect)
+        ipts = box.astype(np.int32)
+        (x0, y0), (x1, y1) = ipts.min(0).tolist(), ipts.max(0).tolist()
+        x0, x1 = min(max(x0, 0), W - 1), min(max(x1, 0), W - 1) + 1
+        y0, y1 = min(max(y0, 0), H - 1), min(max(y1, 0), H - 1) + 1
+        mask = fill_poly_window(ipts, (H, W), (y0, y1, x0, x1))
+        total = _page_sum_f32(prob_map[y0:y1, x0:x1] * mask, y0, x0, H, W)
+        score = float(np.float64(total) / max(int(mask.sum()), 1))
+        if score >= box_thresh:
+            boxes.append(box)
+            scores.append(score)
+    if not boxes:
+        return np.zeros((0, 8), np.float32), np.zeros((0,), np.float32)
+    # unclip every kept box at once: offset outward by A * r / L along the
+    # centre-vertex directions, in the JAX function's float32 steps
+    box = np.stack(boxes)
+    dist = contour_area(box) * unclip_ratio / np.maximum(arc_length(box),
+                                                         1e-6)
+    center = box.mean(axis=1, keepdims=True)
+    vec = box - center
+    norm = np.linalg.norm(vec, axis=2, keepdims=True) + 1e-6
+    box = box + vec / norm * dist.astype(np.float32)[:, None, None]
+    box[..., 0] = np.clip(box[..., 0], 0, W - 1)
+    box[..., 1] = np.clip(box[..., 1], 0, H - 1)
+    order = np.argsort(scores)[::-1]
+    return (box.reshape(-1, 8).astype(np.float32)[order],
+            np.asarray(scores, np.float32)[order])
+
+
 # the detect function's page size (h, w), the JAX CLI's
 DETECT_HW = (640, 640)
 
 
 def make_db_detect_fn(model: DBDetector, box_thresh: float = 0.3):
-    """→ detect_fn(image_u8) for `pipelines.modules.TextDetection`: the page
-    resized to DETECT_HW on the model's device (cv2's INTER_LINEAR),
-    scaled to [0, 1] in float32 → the probability map →
-    `extract_boxes_device` (every component) → (quads [N, 8]
-    float32 in page pixels, scores [N] float32), by score descending."""
+    """→ detect_fn(image_u8) for `pipelines.modules.TextDetection`, the JAX
+    CLI's `_db_detect_fn`: the page resized to DETECT_HW on the model's
+    device (cv2's INTER_LINEAR), scaled to [0, 1] in float32 → the
+    probability map, read back once → `extract_boxes` with `box_thresh`
+    → (quads [N, 8] float32 in page pixels, scores [N] float32), by score
+    descending."""
     device = next(model.parameters()).device
     H, W = DETECT_HW
 
@@ -167,13 +243,10 @@ def make_db_detect_fn(model: DBDetector, box_thresh: float = 0.3):
         page = as_device_tensor(image_u8, device)
         h, w = page.shape[:2]
         x = resize_linear_u8(page[None], (H, W)).float() / 255.0
-        prob = model(x)["prob"][..., 0]
-        quads, scores, valid = extract_boxes_device(
-            prob, box_thresh=box_thresh, max_boxes=None)
-        keep = valid[0]
-        quads = quads[0][keep].reshape(-1, 8).cpu().numpy()
-        scores = scores[0][keep].cpu().numpy()
-        quads = quads * np.tile([w / W, h / H], 4)
-        return quads.astype(np.float32), scores.astype(np.float32)
+        prob = model(x)["prob"][0, :, :, 0].cpu().numpy()
+        quads, scores = extract_boxes(prob, box_thresh=box_thresh)
+        if len(quads):
+            quads = quads * np.tile([w / W, h / H], 4)
+        return quads.astype(np.float32), scores
 
     return detect

@@ -20,8 +20,8 @@ uint8 out:
   one uint8 level of cv2 5.0;
 - `crop_quads_u8` chains them: every quad to its own size (the JAX
   pipeline's `crop_image`), then to the recognizer's crop shape, for all
-  quads of a page in one batch (each warped into a canvas of the largest
-  crop's size and resized from its own corner).
+  quads of a page in one batch (each warped into its own stretch of a
+  flat buffer of Σ wᵢ·hᵢ pixels and resized from there).
 """
 
 from __future__ import annotations
@@ -185,25 +185,36 @@ def _linear_taps(in_size: torch.Tensor, out_size: int):
     return s0, torch.minimum(s0 + 1, last), a0, a1
 
 
+def _resize_taps_u8(read, sizes: torch.Tensor,
+                    out_hw: Tuple[int, int]) -> torch.Tensor:
+    """cv2's INTER_LINEAR fixed point over N images of their own sizes
+    ([N, 2] (w, h)): `read(rows [N, oh], cols [N, ow])` gives the int32
+    source pixels [N, oh, ow, C] at those rows and columns of each image.
+    Only the taps' rows and columns are read, so the work is
+    N × oh × ow whatever the sources' sizes."""
+    oh, ow = out_hw
+    y0, y1, b0, b1 = _linear_taps(sizes[:, 1].long(), oh)
+    x0, x1, a0, a1 = _linear_taps(sizes[:, 0].long(), ow)
+    a0, a1 = a0[:, None, :, None], a1[:, None, :, None]
+    # horizontal pass at scale 2048, then cv2's truncating vertical pass
+    r0 = (read(y0, x0) * a0 + read(y0, x1) * a1) >> 4
+    r1 = (read(y1, x0) * a0 + read(y1, x1) * a1) >> 4
+    v = (((r0 * b0[..., None, None]) >> 16)
+         + ((r1 * b1[..., None, None]) >> 16) + 2) >> 2
+    return v.clamp(0, 255).to(torch.uint8)
+
+
 def resize_crops_u8(images_u8: torch.Tensor, sizes: torch.Tensor,
                     out_hw: Tuple[int, int]) -> torch.Tensor:
     """uint8 [N, Hc, Wc, C], image n valid in its top-left
     sizes[n] = (w, h) → uint8 [N, h_out, w_out, C], each resized from its
     own size as `cv2.resize(..., INTER_LINEAR)`."""
-    N, Hc, Wc, C = images_u8.shape
-    oh, ow = out_hw
-    n = torch.arange(N, device=images_u8.device)[:, None]
-    y0, y1, b0, b1 = _linear_taps(sizes[:, 1].long(), oh)
-    x0, x1, a0, a1 = _linear_taps(sizes[:, 0].long(), ow)
-    im = images_u8.int()
-    # horizontal pass: [N, Hc, ow, C] at scale 2048
-    hz = (im[n, :, x0].permute(0, 2, 1, 3) * a0[:, None, :, None]
-          + im[n, :, x1].permute(0, 2, 1, 3) * a1[:, None, :, None])
-    r0 = hz[n, y0] >> 4                                    # [N, oh, ow, C]
-    r1 = hz[n, y1] >> 4
-    v = (((r0 * b0[..., None, None]) >> 16)
-         + ((r1 * b1[..., None, None]) >> 16) + 2) >> 2
-    return v.clamp(0, 255).to(torch.uint8)
+    n = torch.arange(len(images_u8), device=images_u8.device)[:, None, None]
+
+    def read(rows, cols):
+        return images_u8[n, rows[:, :, None], cols[:, None, :]].int()
+
+    return _resize_taps_u8(read, sizes, out_hw)
 
 
 def resize_each_u8(images_u8: Sequence, out_hw: Tuple[int, int],
@@ -276,25 +287,22 @@ def perspective_maps(quads) -> Tuple[np.ndarray, np.ndarray]:
     return sizes, np.concatenate([m, np.ones((N, 1))], 1).reshape(N, 3, 3)
 
 
-def warp_perspective_u8(image_u8: torch.Tensor, inv_maps: torch.Tensor,
-                        out_hw: Tuple[int, int]) -> torch.Tensor:
-    """uint8 page [H, W, C], inverse homographies [N, 3, 3] (float64) →
-    uint8 [N, h, w, C]: `cv2.warpPerspective(page, M, (w, h))` for each
-    map, INTER_LINEAR with a constant 0 border."""
+def _warp_points_u8(image_u8: torch.Tensor, maps: torch.Tensor,
+                    crop: torch.Tensor, xs: torch.Tensor,
+                    ys: torch.Tensor) -> torch.Tensor:
+    """`cv2.warpPerspective`'s value at destination pixels (xs, ys)
+    (float64 [P]) of crop `crop[p]` (int64 [P]), whose inverse homography
+    is maps[crop[p]] (float64 [N, 3, 3] on the page's device) → uint8
+    [P, C]: INTER_LINEAR with a constant 0 border."""
     H, W, C = image_u8.shape
-    oh, ow = out_hw
-    dev = image_u8.device
-    m = inv_maps.to(dev, torch.float64)
-    ys = torch.arange(oh, dtype=torch.float64, device=dev)[:, None]
-    xs = torch.arange(ow, dtype=torch.float64, device=dev)[None, :]
 
     def row(k):
-        return (m[:, k, 0, None, None] * xs + m[:, k, 1, None, None] * ys
-                + m[:, k, 2, None, None])
+        return (maps[crop, k, 0] * xs + maps[crop, k, 1] * ys
+                + maps[crop, k, 2])
 
     den = row(2)
     den = torch.where(den == 0, torch.inf, den)       # cv2: W ? 1/W : 0
-    X, Y = row(0) / den, row(1) / den                   # [N, oh, ow]
+    X, Y = row(0) / den, row(1) / den
     x0f, y0f = torch.floor(X), torch.floor(Y)
     fx = (X - x0f).float()[..., None]
     fy = (Y - y0f).float()[..., None]
@@ -312,6 +320,21 @@ def warp_perspective_u8(image_u8: torch.Tensor, inv_maps: torch.Tensor,
     return torch.floor(v + 0.5).clamp(0, 255).to(torch.uint8)
 
 
+def warp_perspective_u8(image_u8: torch.Tensor, inv_maps: torch.Tensor,
+                        out_hw: Tuple[int, int]) -> torch.Tensor:
+    """uint8 page [H, W, C], inverse homographies [N, 3, 3] (float64) →
+    uint8 [N, h, w, C]: `cv2.warpPerspective(page, M, (w, h))` for each
+    map, INTER_LINEAR with a constant 0 border."""
+    oh, ow = out_hw
+    dev = image_u8.device
+    N = len(inv_maps)
+    crop = torch.arange(N, device=dev).repeat_interleave(oh * ow)
+    pix = torch.arange(oh * ow, device=dev).repeat(N)
+    out = _warp_points_u8(image_u8, inv_maps.to(dev, torch.float64), crop,
+                          (pix % ow).double(), (pix // ow).double())
+    return out.reshape(N, oh, ow, -1)
+
+
 def crop_quads_u8(image_u8: torch.Tensor, quads,
                   out_hw: Tuple[int, int] = (32, 128)) -> torch.Tensor:
     """uint8 page [H, W, C] on its device, quads [N, 4, 2] (host, ordered
@@ -319,14 +342,29 @@ def crop_quads_u8(image_u8: torch.Tensor, quads,
     rectified to its own size (`cv2.getPerspectiveTransform` +
     `cv2.warpPerspective`), then resized to `out_hw` (`cv2.resize`). The
     sizes and homographies come from the host's quads, so no crop waits
-    on the device."""
+    on the device. The rectified crops lie in one flat buffer of
+    Σ wᵢ·hᵢ pixels (crop i at offsets[i], row-major in its own width), so
+    memory and time follow the crops' own areas."""
     sizes, maps = perspective_maps(quads)
-    N = len(sizes)
+    dev = image_u8.device
     C = image_u8.shape[-1]
-    if N == 0:
-        return torch.zeros((0, *out_hw, C), dtype=torch.uint8,
-                           device=image_u8.device)
-    canvas_hw = (int(sizes[:, 1].max()), int(sizes[:, 0].max()))
-    canvas = warp_perspective_u8(image_u8, torch.from_numpy(maps), canvas_hw)
-    return resize_crops_u8(canvas, torch.from_numpy(sizes).to(
-        image_u8.device), out_hw)
+    if len(sizes) == 0:
+        return torch.zeros((0, *out_hw, C), dtype=torch.uint8, device=dev)
+    areas = sizes[:, 0] * sizes[:, 1]
+    offsets = torch.from_numpy(np.cumsum(areas) - areas).to(dev)
+    widths = torch.from_numpy(sizes[:, 0]).to(dev)
+    crop = torch.arange(len(sizes), device=dev).repeat_interleave(
+        torch.from_numpy(areas).to(dev), output_size=int(areas.sum()))
+    local = torch.arange(int(areas.sum()), device=dev) - offsets[crop]
+    w = widths[crop]
+    flat = _warp_points_u8(image_u8, torch.from_numpy(maps).to(dev), crop,
+                           (local % w).double(), (local // w).double())
+    del crop, local, w
+    base = offsets[:, None, None]
+    stride = widths[:, None, None]
+
+    def read(rows, cols):
+        return flat[base + rows[:, :, None] * stride
+                    + cols[:, None, :]].int()
+
+    return _resize_taps_u8(read, torch.from_numpy(sizes).to(dev), out_hw)

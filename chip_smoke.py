@@ -138,8 +138,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     that bound); a released-layout DocXLayout file through
     `import_docxlayout`; `cli table` in a fresh process (equal JSON, its
     cold start); `RecognitionHTTPServer` with 64 concurrent
-    `/v1/recognize` and 3 `/v1/read` requests, equal to `recognize` on
-    the same crops. The golden replay takes `docxlayout.pth` too.
+    `/v1/recognize` and 4 `/v1/read` requests (one a JPEG body), equal to
+    `recognize` on the same crops. The golden replay takes
+    `docxlayout.pth` too. The pages enter as files through `load_image`:
+    all 16 as PNGs whose rows alternate the Paeth and Average filters
+    (decoded equal to the seeded pages), and page 0 of each kind as the
+    committed baseline JPEG (`tests/fixtures/smoke_*_q90.jpg`, decoded to
+    PIL's recorded hash); the host decode and the host box extraction
+    (`models/db.py` `extract_boxes`, the JAX CLI's) are timed a page, the
+    detect stage split into the model and the extraction, and the f32
+    detect function on the card must give page 0 the CPU's boxes; a
+    1240x1754 page with one 1200x40 line and one 40x600 column among its
+    words has its crops' peak card memory held under CROP_BYTES_PER_PIXEL
+    bytes a pixel of the rectified crops.
 
 Every checked kernel call (K1-K5, and each K4 call of the stress) runs on
 poisoned memory: what the caching allocator is about to hand the wrapper
@@ -2953,6 +2964,18 @@ K3_CONTROL_SHIFTS = (0.5, 0.1)
 # together with odds of ~1e-9 a position)
 FLIP_RMS_BOUND = 12.0
 DOC_POLY_TOL = 1e-2           # f32 card vs CPU polygon coordinates, pixels
+# rows of the PNG pages: Paeth, then Average, alternating
+PAGE_PNG_FILTERS = (4, 3)
+# the committed baseline JPEG pages (PIL, quality 90, 4:2:0) and the
+# sha256 of PIL's RGB decode of each
+PAGE_JPEGS = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "fixtures")
+# the mixed page: A4 at 150 dpi, words among one long line and one column
+MIXED_HW = (1754, 1240)
+MIXED_WORDS = (150, 400)      # crops the detect function gives it
+# card memory the crops of a page may take a pixel of the rectified crops
+# (Σ wᵢ·hᵢ): the bound tests/test_torch_pipelines.py holds on the host
+CROP_BYTES_PER_PIXEL = 1024
 
 
 def _word(page, rng, y, x, h, w):
@@ -3285,14 +3308,16 @@ class MemoRecognizer:
 def doc_pipelines(engine, det_fn, table_fn, layout_fn, device=None,
                   clock=None):
     """GeneralTextReading, TableParsing and DocumentStructurization over
-    the given module callables (timed by `clock` when given)."""
+    the given module callables (timed by `clock` when given; the detect
+    function's stage ends after its box extraction, "det_extract", whose
+    start `docxchain_phase` marks as the end of "det_model")."""
     from advancedliteratemachinery_tpu_torch.pipelines import (
         DocumentStructurization, GeneralTextReading, LayoutAnalysis,
         TableParsing, TableStructureRecognition, TextDetection,
         TextRecognition)
     rec_fn = engine.recognize
     if clock is not None:
-        det_fn = clock.wrap("det", det_fn)
+        det_fn = clock.wrap("det_extract", det_fn)
         table_fn = clock.wrap("table", table_fn)
         layout_fn = clock.wrap("layout", layout_fn)
         rec_fn = clock.wrap("rec", rec_fn, before="crop")
@@ -3459,14 +3484,24 @@ def docxlayout_reference_file(model):
     return rec
 
 
-def png_bytes(image):
-    """An 8-bit RGB PNG (rows unfiltered, zlib level 1) of a uint8
-    [H, W, 3] array."""
+def png_bytes(image, filters=(0,)):
+    """An 8-bit RGB PNG (zlib level 1) of a uint8 [H, W, 3] array, row y
+    written with PNG filter filters[y % len(filters)] (0 None, 1 Sub,
+    2 Up, 3 Average, 4 Paeth)."""
     import struct
     import zlib
     h, w = image.shape[:2]
-    raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          np.ascontiguousarray(image).reshape(h, -1)], 1)
+    cur = np.ascontiguousarray(image).reshape(h, -1).astype(np.int16)
+    up = np.concatenate([np.zeros_like(cur[:1]), cur[:-1]])
+    left = np.concatenate([np.zeros_like(cur[:, :3]), cur[:, :-3]], 1)
+    ul = np.concatenate([np.zeros_like(up[:, :3]), up[:, :-3]], 1)
+    pa, pb, pc = abs(up - ul), abs(left - ul), abs(left + up - 2 * ul)
+    paeth = np.where((pa <= pb) & (pa <= pc), left,
+                     np.where(pb <= pc, up, ul))
+    preds = np.stack([0 * cur, left, up, (left + up) >> 1, paeth])
+    kinds = np.resize(np.asarray(filters), h)
+    rows = ((cur - preds[kinds, np.arange(h)]) & 255).astype(np.uint8)
+    raw = np.concatenate([kinds[:, None].astype(np.uint8), rows], 1)
 
     def chunk(kind, body):
         return (struct.pack(">I", len(body)) + kind + body
@@ -3476,6 +3511,115 @@ def png_bytes(image):
             + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
             + chunk(b"IDAT", zlib.compress(raw.tobytes(), 1))
             + chunk(b"IEND", b""))
+
+
+def pages_from_files(docs, tables, tmp):
+    """The pages as a user's files through `load_image`: every page as a
+    PNG with Paeth and Average rows (each must decode to the seeded page)
+    and page 0 of each kind as its committed baseline JPEG (each must
+    decode to PIL's recorded hash). → ({"png": [pages], "jpeg": {kind:
+    page}}, the record with host decode ms a page for each format)."""
+    from advancedliteratemachinery_tpu_torch.pipelines.file_loading import (
+        load_image)
+    rec = {"png_filters": list(PAGE_PNG_FILTERS)}
+    pngs, ms = [], []
+    for i, page in enumerate(np.concatenate([docs, tables])):
+        path = os.path.join(tmp, f"page{i}.png")
+        with open(path, "wb") as f:
+            f.write(png_bytes(page, PAGE_PNG_FILTERS))
+        t0 = time.perf_counter()
+        pngs.append(load_image(path))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        require(np.array_equal(pngs[-1], page),
+                f"PNG page {i} does not decode to the seeded page")
+    rec["png_ms_per_page"] = ms
+    with open(os.path.join(PAGE_JPEGS, "smoke_pages_jpeg.json")) as f:
+        hashes = json.load(f)
+    jpegs, ms, equal = {}, [], {}
+    for kind, name in (("doc", "smoke_doc_page0_q90.jpg"),
+                       ("table", "smoke_table_page0_q90.jpg")):
+        path = os.path.join(PAGE_JPEGS, name)
+        t0 = time.perf_counter()
+        jpegs[kind] = load_image(path)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        equal[kind] = (hashlib.sha256(jpegs[kind].tobytes()).hexdigest()
+                       == hashes[name]["sha256"])
+        seeded = (docs if kind == "doc" else tables)[0]
+        rec[f"jpeg_{kind}_vs_seeded_mean_abs"] = float(np.abs(
+            jpegs[kind].astype(np.int16) - seeded).mean())
+    rec.update({"jpeg_ms_per_page": ms, "jpeg_equals_pil": equal,
+                "jpeg_bytes": [os.path.getsize(os.path.join(PAGE_JPEGS, n))
+                               for n in ("smoke_doc_page0_q90.jpg",
+                                         "smoke_table_page0_q90.jpg")]})
+    require(all(equal.values()),
+            f"JPEG pages do not decode to PIL's decode: {rec}")
+    return {"png": pngs, "jpeg": jpegs}, rec
+
+
+def mixed_size_page(hw=MIXED_HW, seed=4):
+    """A seeded page with one 1200x40 line and one 40x600 column among
+    two blocks of small words: the crops of one page differ in size by
+    far, the case one canvas of the largest crop's size multiplied."""
+    rng = np.random.default_rng(seed)
+    H, W = hw
+    page = rng.integers(228, 256, (H, W, 3), dtype=np.uint8)
+    _word(page, rng, 60, 20, 40, 1200)                      # the line
+    _word(page, rng, 160, W - 80, 600, 40)                  # the column
+    for x0, x1, y0, y1 in ((40, W - 140, 160, 760),
+                           (40, W - 40, 800, H - 60)):
+        for y in range(y0, y1, 44):
+            x = x0 + int(rng.integers(0, 30))
+            while True:
+                w = int(rng.integers(60, 160))
+                if x + w > x1:
+                    break
+                _word(page, rng, y, x, 26, w)
+                x += w + int(rng.integers(40, 70))
+    return page
+
+
+def mixed_crops_phase(engine, det_fn):
+    """The mixed page's crops on the card: the peak memory
+    `crop_quads_u8` takes must stay under CROP_BYTES_PER_PIXEL bytes a
+    pixel of Σ wᵢ·hᵢ (the rectified crops), with the line and the column
+    among them; the crops equal the CPU's within one uint8 level and go
+    through the recognizer."""
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        crop_quads_u8, perspective_maps)
+    page = mixed_size_page()
+    quads = np.asarray([order_point(q) for q in det_fn(page)[0]],
+                       np.float32).reshape(-1, 4, 2)
+    sizes, _ = perspective_maps(quads)
+    pixels = int((sizes[:, 0] * sizes[:, 1]).sum())
+    gpu_page = torch.from_numpy(page).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    crops = crop_quads_u8(gpu_page, quads)
+    torch.cuda.synchronize()
+    crop_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() - base
+    cpu = crop_quads_u8(torch.from_numpy(page), quads)
+    results = recognize_in_batches(engine, crops, 64)
+    rec = {"page_hw": MIXED_HW, "crops": len(quads),
+           "largest_crop_wh": [int(sizes[:, 0].max()),
+                               int(sizes[:, 1].max())],
+           "crop_pixels": pixels, "peak_bytes": peak,
+           "bound_bytes": CROP_BYTES_PER_PIXEL * pixels,
+           "one_canvas_pixels": len(quads) * int(sizes[:, 0].max())
+           * int(sizes[:, 1].max()),
+           "crop_ms": crop_ms,
+           "max_diff_vs_cpu": int((crops.cpu().int() - cpu.int()).abs()
+                                  .max()),
+           "recognized": len(results)}
+    require(MIXED_WORDS[0] <= len(quads) <= MIXED_WORDS[1]
+            and rec["largest_crop_wh"][0] >= 1000
+            and rec["largest_crop_wh"][1] >= 500
+            and peak < rec["bound_bytes"] and rec["max_diff_vs_cpu"] <= 1
+            and len(results) == len(quads),
+            f"mixed page crops out of bounds: {rec}")
+    return rec
 
 
 def readable_cli_main(argv):
@@ -3555,12 +3699,12 @@ def recognize_in_batches(engine, u8, batch_size):
     return out
 
 
-def http_phase(engine, det_fn, pages, read_pages, batch_size=32):
+def http_phase(engine, det_fn, pages, reads, batch_size=32):
     """`RecognitionHTTPServer` on 127.0.0.1 with the engine: 64 concurrent
     /v1/recognize requests (PNG word crops cut from `pages`) and a
-    /v1/read request for each of `read_pages` (whole pages), each result
-    equal to the engine's own `recognize` on the same crops in batches of
-    the server's shape."""
+    /v1/read request for each of `reads` (whole pages: (file bytes, the
+    page they decode to)), each result equal to the engine's own
+    `recognize` on the same crops in batches of the server's shape."""
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
     from advancedliteratemachinery_tpu_torch.engine.http_serving import (
@@ -3580,7 +3724,7 @@ def http_phase(engine, det_fn, pages, read_pages, batch_size=32):
     def post(path, body):
         req = urllib.request.Request(
             f"http://127.0.0.1:{srv.port}{path}", data=body,
-            headers={"Content-Type": "image/png"})
+            headers={"Content-Type": "application/octet-stream"})
         with urllib.request.urlopen(req, timeout=120) as r:
             return json.loads(r.read())
 
@@ -3600,8 +3744,8 @@ def http_phase(engine, det_fn, pages, read_pages, batch_size=32):
             seconds = time.perf_counter() - t0
         stats = dict(srv.batcher.stats)
         t0 = time.perf_counter()
-        reads = [post("/v1/read", png_bytes(p)) for p in read_pages]
-        read_s = (time.perf_counter() - t0) / len(read_pages)
+        answers = [post("/v1/read", body) for body, _ in reads]
+        read_s = (time.perf_counter() - t0) / len(reads)
     finally:
         srv.stop()
     resized = np.stack([resize_linear_u8(torch.from_numpy(c)[None],
@@ -3609,7 +3753,7 @@ def http_phase(engine, det_fn, pages, read_pages, batch_size=32):
                         for c in crops])
     want = direct(resized)
     read_equal = []
-    for page, res in zip(read_pages, reads):
+    for (_, page), res in zip(reads, answers):
         quads, scores = det_fn(page)
         u8 = crop_quads_u8(torch.from_numpy(page).cuda(),
                            np.asarray(quads).reshape(-1, 4, 2)).cpu().numpy()
@@ -3621,7 +3765,7 @@ def http_phase(engine, det_fn, pages, read_pages, batch_size=32):
            "batches": stats["batches"], "items": stats["items"],
            "padded_slots": stats["padded_slots"],
            "recognize_equal": got == want,
-           "read_words": [len(r["words"]) for r in reads],
+           "read_words": [len(r["words"]) for r in answers],
            "read_equal": read_equal, "read_s_per_page": read_s}
     require(rec["recognize_equal"] and all(read_equal)
             and stats["items"] == 64,
@@ -3642,9 +3786,14 @@ def docxchain_phase(card):
         make_table_predict_fn)
     from advancedliteratemachinery_tpu_torch.ops.image import (
         crop_quads_u8, resize_linear_u8)
+    from advancedliteratemachinery_tpu_torch.models import db as db_module
     t_phase = time.perf_counter()
-    docs = document_pages(DOC_PAGES)
-    tables = table_pages(DOC_PAGES)
+    with tempfile.TemporaryDirectory() as tmp:
+        files, decode_rec = pages_from_files(document_pages(DOC_PAGES),
+                                             table_pages(DOC_PAGES), tmp)
+    emit({"phase": "docxchain_decode", "card": card, **decode_rec})
+    docs = np.stack(files["png"][:DOC_PAGES])
+    tables = np.stack(files["png"][DOC_PAGES:])
     cfg = MGPSTRConfig(variant="base")
 
     def build(policy, device):
@@ -3752,36 +3901,67 @@ def docxchain_phase(card):
     require(dense_rec["equal"] and len(got) == dense_words,
             f"dense page: strings differ from the engine's: {dense_rec}")
 
-    # throughput and latency, 2 rounds over the 8 pages
-    speed = {}
-    for name, pipe in pipes.items():
-        pipe(inputs[name][0])                               # warm up
-        lats = []
-        t0 = time.perf_counter()
-        for _ in range(2):
-            for page in inputs[name]:
-                t1 = time.perf_counter()
-                pipe(page)
-                lats.append((time.perf_counter() - t1) * 1e3)
-        speed[name] = {"pages_per_s": len(lats) / (time.perf_counter() - t0),
-                       "p50_ms": float(np.percentile(lats, 50)),
-                       "p99_ms": float(np.percentile(lats, 99))}
+    # the pages that entered as JPEG files through the same pipelines
+    jpeg_rec = {"reading_words": len(pipes["reading"](
+        files["jpeg"]["doc"])["instances"]),
+        "table_cells": len(pipes["table"](files["jpeg"]["table"])["cells"])}
+    require(jpeg_rec["reading_words"] and jpeg_rec["table_cells"],
+            f"the JPEG pages gave no words or no cells: {jpeg_rec}")
+    mixed = mixed_crops_phase(engine, det_fn)
+    emit({"phase": "docxchain_mixed_crops", "card": card, **mixed})
 
-    # stage times by CUDA events over 3 pages a path
-    clock = StageClock()
-    timed = doc_pipelines(engine, det_fn, table_fn, layout_fn, clock=clock)
-    stages = {}
-    for name, pipe in timed.items():
-        clock.calls = []
-        for page in inputs[name][:3]:
-            clock.start()
-            pipe(page)
-            clock.mark("assembly")
-        stages[name] = clock.stage_ms()
+    # the host box extraction timed a call (and, under the stage clock,
+    # its start marked as the end of the detect function's model stage)
+    real_extract, extract_ms, stage_clock = db_module.extract_boxes, [], []
+
+    def timed_extract(*a, **k):
+        if stage_clock:
+            stage_clock[0].mark("det_model")
+        t0 = time.perf_counter()
+        out = real_extract(*a, **k)
+        extract_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    db_module.extract_boxes = timed_extract
+    try:
+        # throughput and latency, 2 rounds over the 8 pages
+        speed = {}
+        for name, pipe in pipes.items():
+            pipe(inputs[name][0])                           # warm up
+            lats = []
+            extract_ms.clear()
+            t0 = time.perf_counter()
+            for _ in range(2):
+                for page in inputs[name]:
+                    t1 = time.perf_counter()
+                    pipe(page)
+                    lats.append((time.perf_counter() - t1) * 1e3)
+            speed[name] = {
+                "pages_per_s": len(lats) / (time.perf_counter() - t0),
+                "p50_ms": float(np.percentile(lats, 50)),
+                "p99_ms": float(np.percentile(lats, 99)),
+                "host_extract_ms_per_page": float(np.mean(extract_ms))}
+
+        # stage times by CUDA events over 3 pages a path
+        clock = StageClock()
+        stage_clock.append(clock)
+        timed = doc_pipelines(engine, det_fn, table_fn, layout_fn,
+                              clock=clock)
+        stages = {}
+        for name, pipe in timed.items():
+            clock.calls = []
+            for page in inputs[name][:3]:
+                clock.start()
+                pipe(page)
+                clock.mark("assembly")
+            stages[name] = clock.stage_ms()
+    finally:
+        db_module.extract_boxes = real_extract
     emit({"phase": "docxchain", "card": card, "pages": DOC_PAGES,
           "page_hw": DOC_HW,
           "table_input": TABLE_INPUT, "speed": speed, "stage_ms": stages,
           "launches": launches, "dense_page": dense_rec,
+          "jpeg_pages": jpeg_rec,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
     # f32 on the card against the port on the CPU, doc page 0 and table
@@ -3808,8 +3988,18 @@ def docxchain_phase(card):
     diffs = {name: same_result(f32["cuda"]["results"][name],
                                f32["cpu"]["results"][name])
              for name in pipes}
+    # the f32 detect function (the JAX CLI's: host extraction) on page 0
+    (q_gpu, s_gpu), (q_cpu, s_cpu) = (f32[d]["models"][4][0](docs[0])
+                                      for d in ("cuda", "cpu"))
+    same_shape = q_gpu.shape == q_cpu.shape
+    det_rec = {"boxes": [len(q_gpu), len(q_cpu)],
+               "max_quad_diff": float(np.abs(q_gpu - q_cpu).max(initial=0))
+               if same_shape else None,
+               "max_score_diff": float(np.abs(s_gpu - s_cpu).max(initial=0))
+               if same_shape else None}
     res = f32["cuda"]["results"]
     f32_rec = {"diffs": diffs, "launches": f32["cuda"]["launches"],
+               "detect_page0": det_rec,
                "seconds": {d: f32[d]["seconds"] for d in f32},
                "words": len(res["reading"]["instances"]),
                "cells": len(res["table"]["cells"]),
@@ -3819,7 +4009,10 @@ def docxchain_phase(card):
                "regions_with_words": sum(bool(r["text_list"])
                                          for r in res["structurization"])}
     emit({"phase": "docxchain_f32_vs_cpu", **f32_rec})
-    require(not any(diffs.values()) and f32_rec["launches"] == {},
+    require(not any(diffs.values()) and f32_rec["launches"] == {}
+            and same_shape and len(q_cpu)
+            and det_rec["max_quad_diff"] <= DOC_POLY_TOL
+            and det_rec["max_score_diff"] <= 1e-5,
             f"f32 pipelines on the card differ from the CPU: {f32_rec}")
 
     # bf16 decisions against f32 on the card: every place they part must
@@ -3941,7 +4134,12 @@ def docxchain_phase(card):
         tables[0], lore.backbone.hm_out.state_dict(),
         json_form(pipes["table"](tables[0])))
     emit({"phase": "docxchain_cli", "card": card, **cli_rec})
-    http = http_phase(engine, det_fn, docs, [docs[0], docs[1], dense])
+    with open(os.path.join(PAGE_JPEGS, "smoke_doc_page0_q90.jpg"),
+              "rb") as f:
+        jpeg_body = f.read()
+    http = http_phase(engine, det_fn, docs, [
+        (png_bytes(docs[0]), docs[0]), (png_bytes(docs[1]), docs[1]),
+        (png_bytes(dense), dense), (jpeg_body, files["jpeg"]["doc"])])
     emit({"phase": "docxchain_http", "card": card, **http})
     emit({"phase": "docxchain_seconds", "card": card,
           "seconds": time.perf_counter() - t_phase})

@@ -27,7 +27,8 @@ def test_port_imports_without_jax():
               "codecs.coords", "models.swin", "models.omniparser",
               "engine.serving", "eval.spotting_eval", "models.docxlayout",
               "pipelines", "pipelines.modules", "pipelines.document",
-              "pipelines.file_loading", "engine.http_serving", "cli"):
+              "pipelines.file_loading", "pipelines.jpeg", "ops.contours",
+              "engine.http_serving", "cli"):
         assert f"{PKG}.{m}" in modules
     code = textwrap.dedent(f"""
         import importlib, sys

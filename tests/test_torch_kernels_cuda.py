@@ -745,6 +745,42 @@ def test_image_ops_on_card_match_cpu(gen):
     assert (got.int() - want.int()).abs().max().item() <= 1
 
 
+def test_mixed_size_crops_on_card_match_cpu_within_the_bound(gen):
+    """64 quads on a 1240x1754 page, one 1200x40 line and one 40x600
+    column among 100x30 words (some turned): the crops on the card equal
+    the CPU's within one uint8 level, and the card memory they take stays
+    under the host test's bound, 1024 bytes a pixel of Σ wᵢ·hᵢ (one
+    canvas of the largest crop for every quad would hold 46M pixels)."""
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        crop_quads_u8, perspective_maps)
+    rng = np.random.default_rng(0)
+    page = torch.from_numpy(rng.integers(0, 256, (1754, 1240, 3),
+                                         dtype=np.uint8))
+
+    def rect(x, y, w, h, turn=0.0):
+        c, s = np.cos(turn), np.sin(turn)
+        pts = np.array([[0, 0], [w, 0], [w, h], [0, h]], np.float64)
+        return pts @ np.array([[c, s], [-s, c]]) + [x, y]
+
+    quads = [rect(rng.uniform(0, 1110), rng.uniform(30, 1694), 100, 30,
+                  rng.uniform(-0.2, 0.2) * (i % 4 == 0)) for i in range(62)]
+    quads = np.asarray(quads + [rect(10, 20, 1200, 40),
+                                rect(620, 40, 40, 600)], np.float32)
+    sizes, _ = perspective_maps(quads)
+    pixels = int((sizes[:, 0] * sizes[:, 1]).sum())
+    gpu_page = page.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = crop_quads_u8(gpu_page, quads)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    want = crop_quads_u8(page, quads)
+    assert got.shape == want.shape == (64, 32, 128, 3)
+    assert (got.cpu().int() - want.int()).abs().max().item() <= 1
+    assert peak < 1024 * pixels, (peak, pixels)
+
+
 def test_docxlayout_on_card(gen, no_tf32):
     """DocXLayout (DLA-v0 neck, no deformable conv) launches no port
     kernel in bf16 or f32, and in f32 on the card agrees with the CPU."""

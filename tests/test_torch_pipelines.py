@@ -131,6 +131,92 @@ def test_crop_quads_batch_matches_cv2():
     assert empty.shape == (0, 32, 128, 3)
 
 
+def mixed_quads(rng, H, W, n, line, column):
+    """`n` - 2 word rectangles of 100x30, one `line` (w, h) rectangle and
+    one `column`, a few of the words rotated: tl, tr, br, bl."""
+    def rect(x, y, w, h, turn=0.0):
+        c, s = np.cos(turn), np.sin(turn)
+        pts = np.array([[0, 0], [w, 0], [w, h], [0, h]], np.float64)
+        return pts @ np.array([[c, s], [-s, c]]) + [x, y]
+
+    quads = [rect(rng.uniform(0, W - 130), rng.uniform(30, H - 60), 100,
+                  30, rng.uniform(-0.2, 0.2) * (i % 4 == 0))
+             for i in range(n - 2)]
+    quads += [rect(10, 20, *line), rect(W // 2, 40, *column)]
+    return np.asarray(quads, np.float32)
+
+
+def test_crop_quads_mixed_sizes_match_the_canvas_and_cv2():
+    """Quads of very different sizes (one long line, one tall column among
+    words), each warped into its own stretch of the flat buffer: equal bit
+    for bit to warping them all onto one canvas of the largest crop's
+    size and resizing each from its corner (the crops before the flat
+    buffer), and to cv2 within CV2_LEVELS."""
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        perspective_maps, resize_crops_u8, warp_perspective_u8)
+    rng = np.random.default_rng(21)
+    page = seeded_page(4, 240, 320)
+    quads = mixed_quads(rng, *page.shape[:2], 10, (280, 16), (14, 190))
+    got = crop_quads_u8(torch.from_numpy(page), quads)
+    sizes, maps = perspective_maps(quads)
+    canvas = warp_perspective_u8(torch.from_numpy(page),
+                                 torch.from_numpy(maps),
+                                 (int(sizes[:, 1].max()),
+                                  int(sizes[:, 0].max())))
+    torch.testing.assert_close(
+        got, resize_crops_u8(canvas, torch.from_numpy(sizes), (32, 128)),
+        rtol=0, atol=0)
+    for g, q in zip(got.numpy(), quads):
+        want = cv2.resize(jmod.crop_image(page, q), (128, 32))
+        assert np.abs(g.astype(int) - want).max() <= CV2_LEVELS
+
+
+# peak host memory of crop_quads_u8 per pixel of the rectified crops
+CROP_BYTES_PER_PIXEL = 1024
+
+_CROP_PEAK = """
+import resource, sys, numpy as np, torch
+torch.set_num_threads(2)
+from advancedliteratemachinery_tpu_torch.ops.image import crop_quads_u8
+page = torch.from_numpy(np.random.default_rng(0).integers(
+    0, 256, (1754, 1240, 3), dtype=np.uint8))
+quads = np.load(sys.argv[1])
+crop_quads_u8(page, quads[:2])
+before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+out = crop_quads_u8(page, quads)
+peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+print((peak - before) * 1024, tuple(out.shape))
+"""
+
+
+def test_crop_quads_memory_follows_the_crops_areas(tmp_path):
+    """64 quads on a 1240x1754 page, one 1200x40 line and one 40x600
+    column among 100x30 words: the peak resident memory the crops add
+    (measured in a fresh process) stays under CROP_BYTES_PER_PIXEL bytes
+    a pixel of Σ wᵢ·hᵢ (the rectified crops). One canvas of the largest
+    crop's size for every quad took 64 x 1200 x 600 pixels and 6.3 GB
+    here."""
+    import pathlib
+    import subprocess
+    import sys
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        perspective_maps)
+    quads = mixed_quads(np.random.default_rng(0), 1754, 1240, 64,
+                        (1200, 40), (40, 600))
+    sizes, _ = perspective_maps(quads)
+    pixels = int((sizes[:, 0] * sizes[:, 1]).sum())
+    assert 250_000 < pixels < 270_000
+    np.save(tmp_path / "quads.npy", quads)
+    r = subprocess.run(
+        [sys.executable, "-c", _CROP_PEAK, str(tmp_path / "quads.npy")],
+        capture_output=True, text=True, timeout=120,
+        cwd=str(pathlib.Path(__file__).resolve().parent.parent))
+    assert r.returncode == 0, r.stderr
+    grown, shape = r.stdout.split(maxsplit=1)
+    assert shape.strip() == "(64, 32, 128, 3)"
+    assert int(grown) < CROP_BYTES_PER_PIXEL * pixels, (int(grown), pixels)
+
+
 # ---------------- pipelines against the JAX pipelines ----------------
 
 
@@ -332,8 +418,13 @@ def test_load_image_npy_and_refusals(tmp_path):
     np.save(tmp_path / "gray.npy", page[..., 0])
     assert tload.load_image(str(tmp_path / "gray.npy")).shape == (20, 30, 3)
     Image.fromarray(page).save(tmp_path / "page.jpg")
-    with pytest.raises(ImportError, match="PIL"):
-        tload.load_image(str(tmp_path / "page.jpg"))
+    np.testing.assert_array_equal(
+        tload.load_image(str(tmp_path / "page.jpg")),
+        np.asarray(Image.open(tmp_path / "page.jpg").convert("RGB")))
+    Image.fromarray(page).save(tmp_path / "page.bmp")
+    with pytest.raises(ValueError, match="queued") as e:
+        tload.load_image(str(tmp_path / "page.bmp"))
+    assert "Pillow" not in str(e.value) and "PIL" not in str(e.value)
     with pytest.raises(ImportError, match="(?i)pdf"):
         tload.load_document(str(tmp_path / "doc.pdf"))
 
