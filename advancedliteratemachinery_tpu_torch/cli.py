@@ -7,6 +7,11 @@ commands of `advancedliteratemachinery_tpu/cli.py`):
   read / structurize / table   page pipelines → JSON
   convert DOC                  whole image/PDF → per-page JSON
   serve                        HTTP recognition service (continuous batching)
+  eval --data LMDB...          STR benchmark suite (per-set + weighted acc)
+  create-lmdb GT OUT           build an STR LMDB from path\tlabel lines
+  ccocr-collect INDEX OUT      run a model over a CC-OCR tree → responses
+  ccocr-eval INDEX PRED GT     CC-OCR LMM benchmark harness
+  eval-det DT.json GT.json     COCO-protocol detection mAP
 
 The arguments are the JAX CLI's. Models run on the card unless
 `--device cpu` is given. Weights are seeded at random, or a reference
@@ -58,13 +63,54 @@ def _load_image(path: str):
     return load_image(path)
 
 
+def _cfg_overrides(cfg, json_str):
+    """Apply a JSON dict of (possibly nested) field overrides to a frozen
+    config dataclass — the JAX CLI's `--config-json`, which lets a command
+    run at reduced widths (a nested dict builds a sub-config whose field
+    is None, e.g. MGPSTRConfig.vit; a list becomes a tuple)."""
+    if not json_str:
+        return cfg
+    import dataclasses
+    import typing
+
+    def dataclass_of(hint):
+        for t in (hint, *typing.get_args(hint)):
+            if isinstance(t, type) and dataclasses.is_dataclass(t):
+                return t
+        return None
+
+    def apply(c, d):
+        fields = {f.name for f in dataclasses.fields(c)}
+        hints = typing.get_type_hints(type(c))
+        kw = {}
+        for k, v in d.items():
+            if k not in fields:
+                raise ValueError(f"{type(c).__name__}: unknown config "
+                                 f"field {k!r}; valid: {sorted(fields)}")
+            cur = getattr(c, k)
+            if isinstance(v, dict) and dataclasses.is_dataclass(cur):
+                v = apply(cur, v)
+            elif isinstance(v, dict) and dataclass_of(hints.get(k)):
+                v = apply(dataclass_of(hints[k])(), v)
+            elif isinstance(v, list) and (cur is None
+                                          or isinstance(cur, tuple)):
+                v = tuple(v)
+            kw[k] = v
+        return dataclasses.replace(c, **kw)
+
+    return apply(cfg, json.loads(json_str))
+
+
 def _rec_engine(args):
     """--model {mgp_str,lister,levocr}: the three STR recognizers share the
-    recognize() -> [(text, conf, tag)] protocol."""
+    recognize() -> [(text, conf, tag)] protocol. MGP-STR takes
+    `--batch-max-length` (default 25) and each model `--config-json`, as in
+    the JAX CLI."""
     from advancedliteratemachinery_tpu_torch.engine import checkpoint as ck
 
     model_name = getattr(args, "model", "mgp_str")
     device = args.device
+    overrides = getattr(args, "config_json", None)
     sd = (ck.load_torch_state_dict(args.torch_ckpt)
           if getattr(args, "torch_ckpt", None) else None)
     if model_name == "mgp_str":
@@ -75,8 +121,9 @@ def _rec_engine(args):
         from advancedliteratemachinery_tpu_torch.models.mgp_str import (
             MGPSTR, MGPSTRConfig)
 
-        model = MGPSTR(MGPSTRConfig(variant=args.variant,
-                                    batch_max_length=25), device=device)
+        cfg = MGPSTRConfig(variant=args.variant, batch_max_length=getattr(
+            args, "batch_max_length", None) or 25)
+        model = MGPSTR(_cfg_overrides(cfg, overrides), device=device)
         if sd is not None:
             ck.import_mgp_str(sd, model)
         return MGPSTRInference(model, CharCodec(), device=device)
@@ -86,7 +133,8 @@ def _rec_engine(args):
         from advancedliteratemachinery_tpu_torch.models.lister import (
             LISTER, LISTERConfig)
 
-        model = LISTER(LISTERConfig(variant=args.variant), device=device)
+        model = LISTER(_cfg_overrides(LISTERConfig(variant=args.variant),
+                                      overrides), device=device)
         if sd is not None:
             ck.import_lister(sd, model)
         return LISTERInference(model, device=device)
@@ -95,7 +143,7 @@ def _rec_engine(args):
     from advancedliteratemachinery_tpu_torch.models.levocr import (
         LevOCR, LevOCRConfig)
 
-    model = LevOCR(LevOCRConfig(), device=device)
+    model = LevOCR(_cfg_overrides(LevOCRConfig(), overrides), device=device)
     if sd is not None:
         ck.import_levocr(sd, model)
     return LevOCRInference(model, device=device)
@@ -229,9 +277,156 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_eval(args) -> int:
+    """STR benchmark suite: per-set + weighted total word accuracy over
+    LMDB eval dirs (reference test_final.py:29 benchmark_all_eval /
+    LISTER test.py:23 / LevOCR eval.py:21). Crops are decoded on the host
+    and resized on the engine's device."""
+    from advancedliteratemachinery_tpu_torch.eval.str_eval import (
+        benchmark_all_eval)
+
+    engine = _rec_engine(args)
+    out = benchmark_all_eval(engine.recognize, args.data,
+                             charset=args.charset,
+                             max_length=args.batch_max_length,
+                             batch_size=args.batch_size,
+                             device=engine.device)
+    print(json.dumps(out, indent=2, default=float))
+    return 0
+
+
+def cmd_create_lmdb(args) -> int:
+    from advancedliteratemachinery_tpu_torch.data.lmdb_writer import (
+        create_str_lmdb)
+
+    n = create_str_lmdb(args.gt_file, args.out_dir, root=args.root,
+                        check_valid=not args.no_check)
+    print(json.dumps({"out_dir": args.out_dir, "num_samples": n}))
+    return 0
+
+
+def cmd_ccocr_eval(args) -> int:
+    """CC-OCR LMM benchmark harness over a predictions directory
+    (reference Benchmarks/CC-OCR/evaluation/main.py: index-driven
+    per-dataset evaluators + overall summary)."""
+    import os
+
+    from advancedliteratemachinery_tpu_torch.eval.ccocr_harness import (
+        evaluate_and_summary, load_response_from_dir)
+
+    def load_any(path):
+        if os.path.isdir(path):
+            return load_response_from_dir(path)
+        with open(path, encoding="utf-8") as f:
+            return json.load(f)
+
+    with open(args.index, encoding="utf-8") as f:
+        index = json.load(f)
+    responses, gts = {}, {}
+    for item in index:
+        name = item["dataset"]
+        pdt = os.path.join(args.pred_dir, name)
+        gt = os.path.join(args.gt_dir, name)
+        if os.path.exists(pdt) and os.path.exists(gt):
+            responses[name] = load_any(pdt)
+            gts[name] = load_any(gt)
+        elif os.path.exists(pdt + ".json") and os.path.exists(gt + ".json"):
+            responses[name] = load_any(pdt + ".json")
+            gts[name] = load_any(gt + ".json")
+    out = evaluate_and_summary(index, responses, gts,
+                               weighted=args.weighted)
+    print(json.dumps(out, indent=2, default=float))
+    return 0
+
+
+def _pipeline_model_fn(args):
+    """`ccocr-collect --model pipeline`: the port's `GeneralTextReading`
+    as the JAX command builds it (MGP-STR-base at batch_max_length 25, DB
+    with the host `extract_boxes` at the read command's default threshold,
+    0.3), on `--device`; a page's response is its words' texts, one a
+    line."""
+    from argparse import Namespace
+
+    from advancedliteratemachinery_tpu_torch.pipelines.document import (
+        GeneralTextReading)
+    from advancedliteratemachinery_tpu_torch.pipelines.modules import (
+        TextDetection)
+
+    sub = Namespace(model="mgp_str", variant="base", device=args.device,
+                    torch_ckpt=args.torch_ckpt, batch_max_length=25,
+                    det_thresh=0.3)
+    pipe = GeneralTextReading(TextDetection(_db_detect_fn(sub)),
+                              _recognition(sub, _rec_engine(sub)))
+
+    def model_fn(image_path, question):
+        out = pipe(_load_image(image_path))
+        return "\n".join(inst.get("text", "")
+                         for inst in out.get("instances", []))
+
+    return model_fn
+
+
+def cmd_ccocr_collect(args) -> int:
+    """Prediction collection over a CC-OCR-format benchmark tree
+    (reference Benchmarks/CC-OCR/example.py): per released dataset, run a
+    model on each qa.jsonl entry and write the per-image response JSONs
+    that `ccocr-eval` consumes, with resume + parallel workers (threads
+    sharing one card)."""
+    import importlib
+    import os
+
+    from advancedliteratemachinery_tpu_torch.eval.ccocr_harness import (
+        collect_predictions)
+
+    spec = args.model
+    if spec == "dummy":
+        model_fn = lambda image_path, question: ""           # noqa: E731
+    elif spec == "pipeline":
+        model_fn = _pipeline_model_fn(args)
+    elif spec.startswith("import:"):
+        mod_name, _, attr = spec[len("import:"):].rpartition(":")
+        model_fn = getattr(importlib.import_module(mod_name), attr)
+    else:
+        raise SystemExit(f"unknown --model {spec!r} (pipeline | dummy | "
+                         f"import:module:attr)")
+
+    with open(args.index, encoding="utf-8") as f:
+        index = json.load(f)
+    # reference path resolution: dataset base_dirs are relative to the
+    # index file's grandparent (example.py: dirname(dirname(index_path)))
+    base = args.base_dir or os.path.dirname(
+        os.path.dirname(os.path.abspath(args.index)))
+    stats = collect_predictions(
+        index, base_dir=base, output_dir=args.output_dir, model_fn=model_fn,
+        model_name=args.model_name or args.model.replace(":", "_"),
+        workers=args.workers, resume=not args.no_resume)
+    print(json.dumps(stats, indent=2))
+    return 0
+
+
+def cmd_eval_det(args) -> int:
+    """COCO-protocol detection scoring: detections JSON + ground-truth
+    JSON → mAP/AP50/AP75 + per-category AP (the metric detectron2's
+    COCOEvaluator reports for VGT — VGTTrainer.py:668)."""
+    from advancedliteratemachinery_tpu_torch.eval.det_map import coco_map
+
+    with open(args.detections, encoding="utf-8") as f:
+        dets = json.load(f)
+    with open(args.ground_truth, encoding="utf-8") as f:
+        gt = json.load(f)
+    if isinstance(gt, dict):            # full COCO file → annotations
+        gt = gt.get("annotations", gt)
+    if isinstance(dets, dict):
+        dets = dets.get("annotations", dets)
+    print(json.dumps(coco_map(dets, gt), indent=2, default=float))
+    return 0
+
+
 COMMANDS = {"recognize": cmd_recognize, "read": cmd_read,
             "structurize": cmd_structurize, "table": cmd_table,
-            "convert": cmd_convert, "serve": cmd_serve}
+            "convert": cmd_convert, "serve": cmd_serve, "eval": cmd_eval,
+            "create-lmdb": cmd_create_lmdb, "ccocr-eval": cmd_ccocr_eval,
+            "ccocr-collect": cmd_ccocr_collect, "eval-det": cmd_eval_det}
 
 
 def _common(p, model: bool = True) -> None:
@@ -291,6 +486,75 @@ def main(argv=None) -> int:
     p.add_argument("--with-detector", action="store_true",
                    help="enable POST /v1/read (DB detect + recognize)")
     p.add_argument("--det-thresh", type=float, default=0.3)
+
+    p = sub.add_parser("eval",
+                       help="STR benchmark over LMDB eval sets "
+                            "(benchmark_all_eval protocol)")
+    p.add_argument("--data", nargs="+", required=True,
+                   help="LMDB eval dirs (IIIT5k, SVT, ...)")
+    _common(p)
+    p.set_defaults(variant="base")
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--batch-max-length", type=int, default=25)
+    p.add_argument("--charset")
+    p.add_argument("--config-json",
+                   help="model-config field overrides (JSON dict), e.g. "
+                        "reduced widths")
+
+    p = sub.add_parser("create-lmdb",
+                       help="build an STR LMDB from a `path\\tlabel` gt "
+                            "file (create_lmdb_dataset.py)")
+    p.add_argument("gt_file")
+    p.add_argument("out_dir")
+    p.add_argument("--root", default="", help="image path prefix")
+    p.add_argument("--no-check", action="store_true",
+                   help="skip image validity checks")
+
+    p = sub.add_parser("ccocr-eval",
+                       help="CC-OCR benchmark harness over a predictions "
+                            "directory")
+    p.add_argument("index", help="index JSON ([{dataset, group, ...}])")
+    p.add_argument("pred_dir", help="per-dataset response dirs/json files")
+    p.add_argument("gt_dir", help="per-dataset ground-truth dirs/json files")
+    p.add_argument("--weighted", action="store_true",
+                   help="sample-weighted overall score")
+
+    p = sub.add_parser("ccocr-collect",
+                       help="run a model over a CC-OCR benchmark tree and "
+                            "write the per-image prediction dirs the "
+                            "harness consumes (reference example.py)")
+    p.add_argument("index", help="index JSON ([{dataset, group, base_dir, "
+                                 "release}])")
+    p.add_argument("output_dir")
+    p.add_argument("--model", default="pipeline",
+                   help="'pipeline' (the port's general-text-reading "
+                        "stack), 'dummy' (empty responses; plumbing "
+                        "check), or 'import:module:attr' for any "
+                        "callable(image_path, question) -> text")
+    p.add_argument("--model-name", default=None,
+                   help="output subdirectory name (default: --model)")
+    p.add_argument("--workers", type=int, default=4)
+    p.add_argument("--no-resume", action="store_true",
+                   help="recompute responses that already exist")
+    p.add_argument("--base-dir", default=None,
+                   help="benchmark root the index's base_dirs are relative "
+                        "to (default: the index file's grandparent, as in "
+                        "the reference)")
+    p.add_argument("--ckpt", help="refused: the JAX package's Orbax "
+                                  "checkpoints (use --torch-ckpt)")
+    p.add_argument("--torch-ckpt",
+                   help="reference torch checkpoint of the pipeline's "
+                        "MGP-STR-base recognizer")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card)")
+
+    p = sub.add_parser("eval-det",
+                       help="COCO-protocol detection mAP from a "
+                            "detections JSON vs ground truth")
+    p.add_argument("detections", help="[{image_id, category_id, bbox "
+                                      "xywh, score}] or COCO results file")
+    p.add_argument("ground_truth", help="[{image_id, category_id, bbox}] "
+                                        "or a full COCO annotation file")
 
     args = parser.parse_args(argv)
     _refuse_unported(args)

@@ -7,9 +7,11 @@ flags, so an edited source or header rebuilds) and loaded with `ctypes`.
 Nothing is built when a module is imported: the CPU tests import every
 module and never reach a kernel.
 
-`LAUNCHES` counts kernel launches per wrapper; a wrapper adds one where it
-launches its kernel and nowhere else, so a run can show that its main path
-went through the kernels.
+`LAUNCHES` counts kernel launches per wrapper; a wrapper adds one
+(`count`) where it launches its kernel and nowhere else, so a run can show
+that its main path went through the kernels. Loading a library and
+counting take a lock, so threads that share one card (the CC-OCR
+harness's workers) neither build a kernel twice nor lose a count.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -43,6 +46,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: collections.Counter = collections.Counter()
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def count(name: str) -> None:
+    """Add one launch of kernel `name` to LAUNCHES."""
+    with _LOCK:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:
@@ -111,15 +121,17 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of kernel library `name`, built and loaded
     on first use, returning a CUDA error code."""
-    lib = _LIBS.get(name)
-    if lib is None:
-        build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
-        lib.alm_error_string.argtypes = [ctypes.c_int]
-        lib.alm_error_string.restype = ctypes.c_char_p
-    fn = getattr(lib, symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            lib.alm_error_string.argtypes = [ctypes.c_int]
+            lib.alm_error_string.restype = ctypes.c_char_p
+            _LIBS[name] = lib
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return fn
 
 

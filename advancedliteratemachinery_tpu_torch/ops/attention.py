@@ -152,7 +152,7 @@ def _fused_qkv_forward(qkv: torch.Tensor, num_heads: int, scale: float,
     err = fn(qkv.data_ptr(), out.data_ptr(), B, S, num_heads, scale,
              int(safe), stream)
     _kernels.check(KERNEL, err)
-    _kernels.LAUNCHES[KERNEL] += 1
+    _kernels.count(KERNEL)
     return out
 
 
@@ -198,7 +198,7 @@ def fused_qkv_attention_bwd(qkv: torch.Tensor, dout: torch.Tensor,
              stats.data_ptr(), B, S, num_heads, scale,
              qkv.device.index or 0, stream)
     _kernels.check(BWD_KERNEL, err)
-    _kernels.LAUNCHES[BWD_KERNEL] += 1
+    _kernels.count(BWD_KERNEL)
     return dqkv
 
 
@@ -288,7 +288,7 @@ def mha_short_seq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              *strides, B, S, H, scale, stream)
     _kernels.check(MHA_KERNEL, err)
-    _kernels.LAUNCHES[MHA_KERNEL] += 1
+    _kernels.count(MHA_KERNEL)
     return out
 
 

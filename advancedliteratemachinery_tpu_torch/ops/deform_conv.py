@@ -190,7 +190,7 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
              out.data_ptr(), B, H, W, Cin, Cout, kh, kw, padding, dilation,
              stream)
     _kernels.check(KERNEL, err)
-    _kernels.LAUNCHES[KERNEL] += 1
+    _kernels.count(KERNEL)
     return out
 
 

@@ -100,5 +100,5 @@ def matmul_greedy_decode(tokens: torch.Tensor, weight: torch.Tensor,
              part_m.data_ptr(), part_a.data_ptr(), part_s.data_ptr(),
              ids.data_ptr(), pmax.data_ptr(), M, D, V, true_vocab, stream)
     _kernels.check(KERNEL, err)
-    _kernels.LAUNCHES[KERNEL] += 1
+    _kernels.count(KERNEL)
     return ids, pmax

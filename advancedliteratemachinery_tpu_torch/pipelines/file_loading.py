@@ -26,7 +26,7 @@ from __future__ import annotations
 import io
 import struct
 import zlib
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 from numpy.lib.stride_tricks import as_strided
@@ -37,6 +37,10 @@ from advancedliteratemachinery_tpu_torch.pipelines.jpeg import (
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8"
 NPY_MAGIC = b"\x93NUMPY"
+# formats PIL reads that the port does not decode yet, by their signatures
+_OTHER_FORMATS = (("BMP", (b"BM",)), ("GIF", (b"GIF87a", b"GIF89a")),
+                  ("TIFF", (b"II*\x00", b"MM\x00*", b"II+\x00",
+                            b"MM\x00+")))
 # colour type → (samples a pixel, the bit depths PNG allows)
 _PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
               4: (2, (8, 16)), 6: (4, (8, 16))}
@@ -230,6 +234,15 @@ def _from_npy(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(arr[..., :3])
 
 
+def other_format(data: bytes) -> Optional[str]:
+    """The name of a format PIL reads that the port does not decode (BMP,
+    GIF, TIFF, WebP), told by its signature, else None."""
+    if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        return "WebP"
+    return next((name for name, sigs in _OTHER_FORMATS
+                 if any(data.startswith(sig) for sig in sigs)), None)
+
+
 def decode_image(data: bytes) -> np.ndarray:
     """Image file bytes (PNG, baseline JPEG or `.npy`), told apart by their
     magic bytes → uint8 RGB [H, W, 3]."""
@@ -239,9 +252,9 @@ def decode_image(data: bytes) -> np.ndarray:
         return decode_jpeg(data)
     if data.startswith(NPY_MAGIC):
         return _from_npy(data)
-    raise ValueError("unrecognised image format: the port decodes PNG, "
-                     "baseline JPEG and .npy; TIFF, BMP, WebP and GIF are "
-                     "queued")
+    kind = other_format(data) or "unrecognised"
+    raise ValueError(f"{kind} image: the port decodes PNG, baseline JPEG "
+                     f"and .npy; TIFF, BMP, WebP and GIF are queued")
 
 
 def load_image(path: str) -> np.ndarray:

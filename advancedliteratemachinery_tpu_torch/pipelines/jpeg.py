@@ -24,6 +24,7 @@ decodes it: `decode_jpeg(data)` equals `Image.open(...).convert("RGB")`.
 
 from __future__ import annotations
 
+import functools
 import re
 import struct
 from typing import Dict, List
@@ -73,11 +74,14 @@ def _extend(raw, size):
     return np.where(raw < (1 << size) >> 1, raw - (1 << size) + 1, raw)
 
 
+@functools.lru_cache(maxsize=16)
 def _huffman_lut(counts: bytes, symbols: bytes, ac: bool) -> List[int]:
     """A table's canonical codes → its 65536-entry lookup table on the
     next 16 bits (AC: the entries above; DC: bits used | (diff + 4096) << 5
     when code and magnitude fit in 16 bits, else -(code length | size <<
-    11))."""
+    11)). Tables repeat from file to file (most encoders write the
+    standard ones), so the last 16 are kept; the decoder only reads
+    them."""
     length = np.zeros(1 << 16, np.int64)
     sym = np.zeros(1 << 16, np.int64)
     code, at = 0, 0
@@ -323,9 +327,9 @@ def _read_frame(data: bytes):
             at = 0
             while at < len(body):
                 cls, tid = body[at] >> 4, body[at] & 15
-                counts = body[at + 1:at + 17]
+                counts = bytes(body[at + 1:at + 17])
                 total = sum(counts)
-                symbols = body[at + 17:at + 17 + total]
+                symbols = bytes(body[at + 17:at + 17 + total])
                 (ac_tabs if cls else dc_tabs)[tid] = _huffman_lut(
                     counts, symbols, bool(cls))
                 at += 17 + total

@@ -150,7 +150,29 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     detect function on the card must give page 0 the CPU's boxes; a
     1240x1754 page with one 1200x40 line and one 40x600 column among its
     words has its crops' peak card memory held under CROP_BYTES_PER_PIXEL
-    bytes a pixel of the rectified crops.
+    bytes a pixel of the rectified crops;
+18. the evaluation surface (`evaluation`, after `docxchain`): six LMDB
+    STR eval sets of the standard names and sizes (IIIT5k_3000, SVT,
+    IC13_857, IC15_1811, SVTP, CUTE80: 7,248 crops of 16-96 x 32-384 px,
+    two thirds seeded PNGs written with `zlib`, one third the committed
+    JPEG crops `tests/fixtures/smoke_crop*.jpg`) written by the CLI's
+    `create-lmdb`; `eval` through the CLI at batch 64 on MGP-STR-base in
+    bf16 (12 K1 + 2 K2 a forward, 117 forwards) collects every crop's
+    string; the sets are written again with those strings as labels,
+    EVAL_ALTERED altered a set, and `benchmark_all_eval` on the card must
+    read exactly (n - k)/n a set and in total with the same strings (timed
+    at batch 64 with its split: LMDB read, host decode, collate with the
+    resize on the card, recognize, scoring), and a control with every
+    label altered read 0 (timed at batch 256); then the CC-OCR harness:
+    `ccocr-collect --model pipeline` over a CC-OCR-format tree of the
+    docxchain phase's 16 page files at 1 and 4 workers sharing the card
+    (equal responses and launches, every page read), `ccocr-eval` against
+    ground truth from the first run (1 within CCOCR_EXACT) and a control
+    with one word dropped a page (below 1); the same for a `doc_parsing`
+    set of the 8 table pages through `--model import:chip_smoke:
+    table_html` (the docxchain phase's TableParsing, 16 K3 a page),
+    scored by TEDS (1 on its own run; below 1 with one cell's text
+    changed a page).
 
 Every checked kernel call (K1-K5, and each K4 call of the stress) runs on
 poisoned memory: what the caching allocator is about to hand the wrapper
@@ -165,7 +187,9 @@ vocab kernel twice, every LORE forward the deformable conv kernel 16
 times and nothing else, every train step the attention kernel and its
 backward kernel 12 times each and nothing else, each document pipeline
 its recognizer's and (tables) LORE's kernels, and the f32 models, the
-golden replay, LISTER, LevOCR, OmniParser and DocXLayout nothing at all.
+golden replay, LISTER, LevOCR, OmniParser and DocXLayout nothing at all,
+and the STR eval pass at batch 64 the recognizer's kernels for each of its
+117 forwards.
 Every time printed is this card's own, taken with CUDA events or, end to
 end, with the host clock after a synchronize.
 The second-to-last line is one JSON object `{"kernels": [...]}`; the last is
@@ -2983,6 +3007,23 @@ def _word(page, rng, y, x, h, w):
     page[y:y + h, x:x + w] = rng.integers(0, 90, (h, w, 3), dtype=np.uint8)
 
 
+def word_crop(rng, h, w):
+    """A seeded uint8 [h, w, 3] word crop: a light background with a little
+    noise and 2-12 dark glyph strokes between a cap line and a base line."""
+    crop = np.clip(rng.integers(150, 256, 3) + rng.normal(0, 6, (h, w, 3)),
+                   0, 255)
+    ink = rng.integers(0, 100, 3)
+    n = int(rng.integers(2, 13))
+    top, base = int(h * 0.2), int(h * 0.8) + 1
+    edges = np.linspace(0.05 * w, 0.95 * w, n + 1)
+    for a, b in zip(edges[:-1], edges[1:]):
+        x0 = int(a + 0.15 * (b - a))
+        x1 = max(x0 + 1, int(b - 0.15 * (b - a)))
+        y0 = top + int(rng.integers(0, max(1, (base - top) // 3)))
+        crop[y0:base, x0:x1] = ink
+    return crop.astype(np.uint8)
+
+
 def document_pages(n, hw=DOC_HW, seed=0):
     """`n` seeded pages: paper noise, a title of 2-3 large words, then two
     columns of 5-7 lines of 2-4 words."""
@@ -4143,7 +4184,408 @@ def docxchain_phase(card):
     emit({"phase": "docxchain_http", "card": card, **http})
     emit({"phase": "docxchain_seconds", "card": card,
           "seconds": time.perf_counter() - t_phase})
-    del engine, db, lore, docx, mgp
+    table = pipes["table"]          # the evaluation phase's doc_parsing set
+    del engine, db, lore, docx, mgp, pipes
+    torch.cuda.empty_cache()
+    return table
+
+
+# the evaluation phase: the standard STR eval sets' names and sizes
+EVAL_SETS = (("IIIT5k_3000", 3000), ("SVT", 647), ("IC13_857", 857),
+             ("IC15_1811", 1811), ("SVTP", 645), ("CUTE80", 288))
+EVAL_CROP_H, EVAL_CROP_W = (16, 96), (32, 384)    # crop size ranges, px
+EVAL_PNG_FILTERS = (1, 2)     # the crops' PNG rows: Sub and Up
+EVAL_ALTERED = 5              # labels altered a set on the self-labelled sets
+# random weights never end a word, so the recognizer would fill all 26
+# character slots of batch_max_length 25, one past the label filter's 25:
+# it runs at 24 (25 slots; `--config-json`), the width (D=768, 12 layers,
+# S=257) MGP-STR-base's own
+EVAL_RECOGNIZER_LENGTH = 24
+EVAL_BATCHES = (64, 256)
+CCOCR_WORKERS = (1, 4)
+# the macro F1 of CC-OCR's OCR evaluator divides by counts + 1e-9, so a
+# page read exactly scores 1 - ~1e-9
+CCOCR_EXACT = 1e-6
+
+
+def readable_mgp_str(model):
+    """Hold the char head's [GO] (id 0, the start token a trained head
+    never predicts) down, so that no random string spells out "[GO]"."""
+    with torch.no_grad():
+        model.char_head.bias[0] = -1e4
+
+
+class PatchedCLI:
+    """Within the block, the port CLI's `_rec_engine` gives engines made
+    readable by `readable_mgp_str` whose recognize() records its strings
+    (`strings`), and its `DBDetector` is `readable_db`'s ink detector."""
+
+    def __init__(self):
+        from advancedliteratemachinery_tpu_torch import cli
+        from advancedliteratemachinery_tpu_torch.models import db
+        self.cli, self.db, self.strings = cli, db, []
+
+    def __enter__(self):
+        make, strings = self.cli._rec_engine, self.strings
+        self.saved = make, self.db.DBDetector
+
+        def rec_engine(args):
+            engine = make(args)
+            readable_mgp_str(engine.model)
+            recognize = engine.recognize
+
+            def record(batch):
+                out = recognize(batch)
+                strings.extend(t for t, _, _ in out)
+                return out
+            engine.recognize = record
+            return engine
+
+        class ReadableDB(self.db.DBDetector):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                readable_db(self)
+
+        self.cli._rec_engine, self.db.DBDetector = rec_engine, ReadableDB
+        return self
+
+    def __exit__(self, *exc):
+        self.cli._rec_engine, self.db.DBDetector = self.saved
+
+    def run(self, argv):
+        """`cli.main(argv)` → its stdout; fails the run on a non-zero exit."""
+        import contextlib
+        import io
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = self.cli.main(argv)
+        require(rc == 0, f"cli {argv[0]} exited {rc}")
+        return buf.getvalue()
+
+
+def eval_crop_files(tmp):
+    """The six eval sets' crops as files: two of every three a seeded
+    `word_crop` of 16-96 x 32-384 px written as PNG with `zlib`, the third
+    a committed JPEG crop, cycled (decoded to PIL's recorded hash on
+    read-back) → {set: [paths]}, the record."""
+    with open(os.path.join(PAGE_JPEGS, "smoke_crops_jpeg.json")) as f:
+        jpegs = sorted(json.load(f))
+    rng = np.random.default_rng(30)
+    files, n_png, t0 = {}, 0, time.perf_counter()
+    for name, n in EVAL_SETS:
+        os.makedirs(os.path.join(tmp, "crops", name))
+        paths = []
+        for i in range(n):
+            if i % 3 == 2:
+                paths.append(os.path.join(PAGE_JPEGS,
+                                          jpegs[(i // 3) % len(jpegs)]))
+                continue
+            h = int(rng.integers(EVAL_CROP_H[0], EVAL_CROP_H[1] + 1))
+            w = int(rng.integers(EVAL_CROP_W[0], EVAL_CROP_W[1] + 1))
+            paths.append(os.path.join(tmp, "crops", name, f"{i}.png"))
+            with open(paths[-1], "wb") as f:
+                f.write(png_bytes(word_crop(rng, h, w), EVAL_PNG_FILTERS))
+            n_png += 1
+        files[name] = paths
+    return files, {"crops": sum(len(v) for v in files.values()),
+                   "png": n_png, "jpeg_files": len(jpegs),
+                   "write_s": time.perf_counter() - t0}
+
+
+def write_eval_sets(patched, files, labels, out):
+    """`create-lmdb` through the CLI for each set with `labels` → the LMDB
+    directories (named as the sets), each holding every crop."""
+    dirs = []
+    os.makedirs(out)
+    for name, paths in files.items():
+        gt = os.path.join(out, f"{name}.txt")
+        with open(gt, "w", encoding="utf-8") as f:
+            f.writelines(f"{p}\t{lb}\n" for p, lb in zip(paths,
+                                                          labels[name]))
+        dirs.append(os.path.join(out, name))
+        n = json.loads(patched.run(["create-lmdb", gt, dirs[-1]])
+                       .splitlines()[-1])["num_samples"]
+        require(n == len(paths), f"create-lmdb kept {n} of {len(paths)} "
+                                 f"crops of {name}")
+    return dirs
+
+
+def split_strings(strings, files):
+    """Recorded strings in the order the runner read the sets → per set."""
+    out, at = {}, 0
+    for name, paths in files.items():
+        out[name] = strings[at:at + len(paths)]
+        at += len(paths)
+    require(at == len(strings), f"{len(strings)} strings for {at} crops")
+    return out
+
+
+def altered(s):
+    """A label the recognizer's string `s` does not match."""
+    return ("q" if s[:1] != "q" else "z") + s[1:]
+
+
+def timed_eval(engine, dirs, batch, patched):
+    """`benchmark_all_eval` on the card at `batch` with its stage split,
+    host clock after a synchronize, card peak memory."""
+    from advancedliteratemachinery_tpu_torch.eval.str_eval import (
+        benchmark_all_eval)
+    patched.strings.clear()
+
+    def record(b):
+        out = engine.recognize(b)
+        patched.strings.extend(t for t, _, _ in out)
+        return out
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    (out, counts) = counted(lambda: benchmark_all_eval(
+        record, dirs, max_length=25, batch_size=batch, device=engine.device,
+        timings=timings))
+    wall = time.perf_counter() - t0
+    n = out["total_samples"]
+    return out, {"batch": batch, "seconds": wall, "crops_per_s": n / wall,
+                 "stage_s": timings, "launches": counts,
+                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def ccocr_pages(kind):
+    """The docxchain phase's page files of `kind` ("doc" or "table"): page
+    0 as its committed JPEG, pages 1-7 as PNGs with Paeth and Average
+    rows → [(file name, bytes)]."""
+    pages = (document_pages if kind == "doc" else table_pages)(DOC_PAGES)
+    with open(os.path.join(PAGE_JPEGS, f"smoke_{kind}_page0_q90.jpg"),
+              "rb") as f:
+        out = [(f"{kind}0.jpg", f.read())]
+    return out + [(f"{kind}{i}.png", png_bytes(page, PAGE_PNG_FILTERS))
+                  for i, page in enumerate(pages[1:], 1)]
+
+
+# the TableParsing pipeline `table_html` runs, set by the evaluation phase
+TABLE_PIPE = None
+
+
+def table_html(image_path, question):
+    """A CC-OCR `import:` model (`import:chip_smoke:table_html`): the
+    docxchain phase's bf16 TableParsing (readable LORE, K3) on the page
+    file → its HTML."""
+    from advancedliteratemachinery_tpu_torch.pipelines.file_loading import (
+        load_image)
+    return TABLE_PIPE(load_image(image_path))["html"]
+
+
+def ccocr_tree(tmp, name, group, pages):
+    """A CC-OCR-format tree of one dataset (index JSON, `qa.jsonl`,
+    images) of `pages` ((file name, bytes) pairs) → the index path."""
+    root = os.path.join(tmp, "ccocr")
+    data = os.path.join(root, "data", name)
+    os.makedirs(os.path.join(data, "images"))
+    with open(os.path.join(data, "qa.jsonl"), "w") as f:
+        for fname, body in pages:
+            with open(os.path.join(data, "images", fname), "wb") as img:
+                img.write(body)
+            f.write(json.dumps({"url": f"images/{fname}", "prompt":
+                                "Read all the text in the image."}) + "\n")
+    os.makedirs(os.path.join(root, "index"), exist_ok=True)
+    index = os.path.join(root, "index", f"{name}.json")
+    with open(index, "w") as f:
+        json.dump([{"dataset": name, "group": group,
+                    "base_dir": f"data/{name}"}], f)
+    return index
+
+
+def ccocr_responses(path):
+    out = {}
+    for name in sorted(os.listdir(path)):
+        with open(os.path.join(path, name), encoding="utf-8") as f:
+            out[name] = json.load(f)["response"]
+    return out
+
+
+def ccocr_collect(patched, index, name, model, tmp):
+    """`ccocr-collect` at each of CCOCR_WORKERS (threads sharing the card):
+    every page read, the responses and the launches of every worker count
+    equal → (responses of the first, the record)."""
+    from advancedliteratemachinery_tpu_torch.eval import ccocr_harness
+    collect, spans = ccocr_harness.collect_predictions, []
+
+    def timed_collect(*a, **k):                 # pages/s past the builds
+        t0 = time.perf_counter()
+        out = collect(*a, **k)
+        spans.append(time.perf_counter() - t0)
+        return out
+
+    ccocr_harness.collect_predictions = timed_collect
+    rec, resp, launches = {}, {}, {}
+    try:
+        for w in CCOCR_WORKERS:
+            out = os.path.join(tmp, "ccocr", "preds")
+            stats, launches[w] = counted(lambda: json.loads(patched.run(
+                ["ccocr-collect", index, out, "--model", model,
+                 "--workers", str(w), "--model-name", f"w{w}"])))
+            stats = stats[name]
+            resp[w] = ccocr_responses(os.path.join(out, f"w{w}", name))
+            rec[f"workers_{w}"] = {**stats, "collect_s": spans[-1],
+                                   "pages_per_s": stats["ok"] / spans[-1],
+                                   "launches": launches[w]}
+            require(stats["ok"] == stats["total"] == len(resp[w]) > 0,
+                    f"ccocr-collect lost pages of {name}: {stats}")
+    finally:
+        ccocr_harness.collect_predictions = collect
+    last = CCOCR_WORKERS[-1]
+    rec.update({"equal_1_4": resp[1] == resp[last],
+                "launches_equal": launches[1] == launches[last]})
+    require(rec["equal_1_4"] and rec["launches_equal"],
+            f"ccocr-collect of {name} at 1 and {last} workers differ: {rec}")
+    return resp[1], rec
+
+
+def ccocr_score(patched, index, name, truth, tmp, case):
+    """`ccocr-eval` of the first collect run against `truth` (a response a
+    page) → the dataset's evaluation summary."""
+    gt = os.path.join(tmp, "ccocr", f"gt_{case}", name)
+    os.makedirs(gt)
+    for fname, text in truth.items():
+        with open(os.path.join(gt, fname), "w", encoding="utf-8") as f:
+            json.dump({"text": text}, f)
+    out = json.loads(patched.run(["ccocr-eval", index, os.path.join(
+        tmp, "ccocr", "preds", "w1"), os.path.dirname(gt)]))
+    return out[name]["evaluation"]["summary"]
+
+
+def first_cell_altered(html):
+    """The HTML with the text of its first non-empty cell changed."""
+    return re.sub(r"(<td[^>]*>)([^<]+)(</td>)", r"\1\2#\3", html, count=1)
+
+
+def ccocr_phase(patched, tmp, table_pipe):
+    """The CC-OCR harness on the card: `ccocr-collect --model pipeline`
+    (the port's GeneralTextReading at MGP-STR-base, the readable DB) over
+    the docxchain phase's 16 page files in a `multi_scene_ocr` dataset,
+    and `--model import:chip_smoke:table_html` (the docxchain phase's
+    TableParsing, K3) over its 8 table pages in a `doc_parsing` dataset,
+    each at 1 and 4 workers on one card; `ccocr-eval` against ground truth
+    from the first run (1 within CCOCR_EXACT; TEDS 1) and against a control
+    (one word dropped a page; one cell's text changed a page: below 1)."""
+    global TABLE_PIPE
+    # `import:chip_smoke:...` must find this module run as a script
+    sys.modules.setdefault("chip_smoke", sys.modules[__name__])
+    TABLE_PIPE = table_pipe
+    rec = {}
+    try:
+        pages = ccocr_pages("doc") + ccocr_pages("table")
+        index = ccocr_tree(tmp, "smoke_pages", "multi_scene_ocr", pages)
+        resp, rec["ocr"] = ccocr_collect(patched, index, "smoke_pages",
+                                         "pipeline", tmp)
+        words = [len(r.split("\n")) if r else 0 for r in resp.values()]
+        rec["ocr"].update({"pages": len(pages), "words_per_page": words})
+        require(min(words) > 0, f"a page read no word: {words}")
+        rec["ocr"]["score_own"] = ccocr_score(
+            patched, index, "smoke_pages", resp, tmp, "own")
+        rec["ocr"]["score_control"] = ccocr_score(
+            patched, index, "smoke_pages",
+            {k: "\n".join(v.split("\n")[1:]) for k, v in resp.items()},
+            tmp, "control")
+        index = ccocr_tree(tmp, "smoke_tables", "doc_parsing",
+                           ccocr_pages("table"))
+        html, rec["tables"] = ccocr_collect(
+            patched, index, "smoke_tables", "import:chip_smoke:table_html",
+            tmp)
+        control = {k: first_cell_altered(v) for k, v in html.items()}
+        rec["tables"].update({
+            "cells_per_page": [v.count("<td") for v in html.values()],
+            "score_own": ccocr_score(patched, index, "smoke_tables", html,
+                                     tmp, "own_tables"),
+            "score_control": ccocr_score(patched, index, "smoke_tables",
+                                         control, tmp, "control_tables"),
+            "control_changed": sum(control[k] != html[k] for k in html)})
+    finally:
+        TABLE_PIPE = None
+    ocr, tab = rec["ocr"], rec["tables"]
+    require(abs(ocr["score_own"]["macro_f1_score"] - 1.0) < CCOCR_EXACT
+            and ocr["score_control"]["macro_f1_score"] < 1.0 - 1e-3
+            and tab["score_own"]["teds"] == 1.0
+            and tab["control_changed"] == len(html)
+            and tab["score_control"]["teds"] < 1.0,
+            f"ccocr-eval scores wrong: {rec}")
+    return rec
+
+
+def evaluation_phase(card, table_pipe):
+    """The evaluation surface (`evaluation`): six LMDB STR eval sets of the
+    standard names and sizes (7,248 seeded crops, a third JPEG) through
+    `create-lmdb` and `eval` (MGP-STR-base in bf16, K1 + K2), labels from
+    the first pass with EVAL_ALTERED altered a set (accuracy exactly
+    (n - k)/n) and a control with every label altered (0), timed at
+    batch 64 and 256 with the stage split; then the CC-OCR harness
+    (`ccocr_phase`; `table_pipe`, the docxchain phase's TableParsing,
+    reads its doc_parsing set)."""
+    from advancedliteratemachinery_tpu_torch.engine.infer import (
+        MGPSTRInference)
+    t_phase = time.perf_counter()
+    cfg = MGPSTRConfig(variant="base",
+                       batch_max_length=EVAL_RECOGNIZER_LENGTH)
+    rec = {"card": card, "sets": dict(EVAL_SETS)}
+    with tempfile.TemporaryDirectory() as tmp, PatchedCLI() as patched:
+        files, rec["files"] = eval_crop_files(tmp)
+        first = {name: ["x"] * len(p) for name, p in files.items()}
+        dirs = write_eval_sets(patched, files, first,
+                               os.path.join(tmp, "first"))
+        argv = ["eval", "--data", *dirs, "--variant", "base",
+                "--batch-size", str(EVAL_BATCHES[0]),
+                "--batch-max-length", "25", "--config-json",
+                json.dumps({"batch_max_length": EVAL_RECOGNIZER_LENGTH})]
+        t0 = time.perf_counter()
+        _, counts = counted(lambda: patched.run(argv))
+        forwards = sum(-(-n // EVAL_BATCHES[0]) for _, n in EVAL_SETS)
+        rec["cli_pass"] = {"seconds": time.perf_counter() - t0,
+                           "launches": counts, "forwards": forwards}
+        require_counts(counts, forwards, "eval --batch-size 64")
+        strings = split_strings(list(patched.strings), files)
+        rng = np.random.default_rng(31)
+        labels, control = {}, {}
+        for name, got in strings.items():
+            labels[name] = list(got)
+            for i in rng.choice(len(got), EVAL_ALTERED, replace=False):
+                labels[name][i] = altered(got[i])
+            control[name] = [altered(s) for s in got]
+        require(all(len(s) <= 25 for v in strings.values() for s in v),
+                "a string past the label filter's 25 characters")
+        self_dirs = write_eval_sets(patched, files, labels,
+                                    os.path.join(tmp, "self"))
+        control_dirs = write_eval_sets(patched, files, control,
+                                       os.path.join(tmp, "control"))
+        engine = MGPSTRInference(MGPSTR(cfg, seed=0), CharCodec())
+        readable_mgp_str(engine.model)
+        out, rec["batch_64"] = timed_eval(engine, self_dirs,
+                                          EVAL_BATCHES[0], patched)
+        same_64 = split_strings(list(patched.strings), files) == strings
+        want = {name: (n - EVAL_ALTERED) / n for name, n in EVAL_SETS}
+        n_all = sum(n for _, n in EVAL_SETS)
+        want["total_accuracy"] = (n_all - EVAL_ALTERED * len(EVAL_SETS)
+                                  ) / n_all
+        rec["self_labelled"] = out
+        rec["self_labelled_exact"] = all(out[k] == v for k, v in
+                                         want.items())
+        out, rec["batch_256"] = timed_eval(engine, control_dirs,
+                                           EVAL_BATCHES[1], patched)
+        same_256 = split_strings(list(patched.strings), files) == strings
+        rec["control"] = out
+        rec["strings_equal"] = {"cli_vs_64": same_64,
+                                "cli_vs_256": same_256}
+        require(rec["self_labelled_exact"] and out["total_samples"] == n_all
+                and all(v == 0 for k, v in out.items()
+                        if k != "total_samples")
+                and same_64 and same_256
+                and rec["batch_64"]["launches"] == counts,
+                f"evaluation: accuracies or strings wrong: {rec}")
+        del engine
+        torch.cuda.empty_cache()
+        emit({"phase": "evaluation", **rec})
+        ccocr = ccocr_phase(patched, tmp, table_pipe)
+    emit({"phase": "evaluation_ccocr", "card": card, **ccocr,
+          "phase_seconds": time.perf_counter() - t_phase})
     torch.cuda.empty_cache()
 
 
@@ -4279,8 +4721,12 @@ def main() -> int:
     mark("levocr")
     omniparser_phase()
     mark("omniparser")
-    docxchain_phase(smi)
+    table_pipe = docxchain_phase(smi)
     mark("docxchain")
+    evaluation_phase(smi, table_pipe)
+    del table_pipe
+    torch.cuda.empty_cache()
+    mark("evaluation")
 
     bwd_err = 0.0
     # both sides of the 64-row tiles and of a 16-row short last chunk, one

@@ -27,6 +27,10 @@ from advancedliteratemachinery_tpu_torch.ops.deform_conv import (
     DeformConv2d, deform_conv2d)
 
 torch.set_num_threads(2)
+# the JAX reference compiled without LLVM's backend optimizations: it
+# compiles in a fraction of the time, and its arithmetic is the op-by-op
+# arithmetic (no multiply-adds contracted into FMAs)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 B, H, W, CI, CO = 2, 20, 24, 5, 7      # H off the TPU kernel's 8-row bands
 TOL = dict(rtol=1e-4, atol=1e-4)       # f32 both sides, summation order
@@ -125,7 +129,8 @@ def test_module_matches_jax_module():
         lambda s: rng.standard_normal(s.shape).astype(np.float32),
         shapes)["params"]
     params["conv_offset_mask"]["kernel"] *= 0.5
-    want = np.asarray(jm.apply({"params": params}, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jm.apply, compiler_options=FAST_COMPILE)(
+        {"params": params}, jnp.asarray(x)))
     tm = load_flax_params(DeformConv2d(CI, CO, policy=FP32_POLICY), params)
     with torch.no_grad():
         om = torch.nn.functional.conv2d(

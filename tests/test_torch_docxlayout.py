@@ -36,6 +36,10 @@ from test_docxlayout import TINY as J_TINY
 from test_torch_lore import random_lore_tree
 
 torch.set_num_threads(2)
+# the JAX reference compiled without LLVM's backend optimizations: it
+# compiles in a fraction of the time, and its arithmetic is the op-by-op
+# arithmetic (no multiply-adds contracted into FMAs)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 REL_TOL = 1e-4        # of each output's largest magnitude, float32
 
@@ -67,7 +71,8 @@ def docx_pair():
     compiled = jax.jit(lambda v, x: jm.apply(
         v, x, method=jm.infer,
         capture_intermediates=lambda m, n: (m.name == "backbone"
-                                            and n == "__call__")))
+                                            and n == "__call__")),
+        compiler_options=FAST_COMPILE)
     calls = []
 
     def run(v, x):

@@ -851,3 +851,113 @@ def test_document_pipelines_on_card_match_cpu(gen, no_tf32):
     for name in results["cpu"]:
         assert cs.same_result(results["cuda"][name],
                               results["cpu"][name]) is None, name
+
+
+def test_nms_on_card_matches_cpu(gen, no_tf32):
+    """`ops/nms.py` on the card against the CPU: quad IoU within 1e-5 (the
+    same float32 clipping), the NMS functions' keep masks equal."""
+    from advancedliteratemachinery_tpu_torch.ops import nms
+    rng = np.random.default_rng(21)
+    centers = rng.uniform(20, 80, (40, 1, 2))
+    quads = torch.from_numpy((centers + rng.uniform(-15, 15, (40, 4, 2))
+                              ).astype(np.float32))
+    rect = torch.sort(quads, dim=1).values        # convex: sorted corners
+    rect = torch.stack([rect[:, 0], torch.stack([rect[:, 3, 0], rect[:, 0, 1]],
+                                               -1), rect[:, 3],
+                        torch.stack([rect[:, 0, 0], rect[:, 3, 1]], -1)], 1)
+    got = nms.quad_iou(rect.cuda()[:, None], rect.cuda()[None]).cpu()
+    want = nms.quad_iou(rect[:, None], rect[None])
+    assert (got - want).abs().max().item() <= 1e-5 and (want > 0).sum() > 80
+    boxes = rect.reshape(40, 8)
+    scores = torch.linspace(1.0, 0.1, 40)
+    for thr in (0.1, 0.3):
+        assert torch.equal(nms.poly_nms(boxes.cuda(), scores.cuda(),
+                                        thr).cpu(),
+                           nms.poly_nms(boxes, scores, thr))
+    assert (nms.soft_nms_scores(boxes.cuda(), scores.cuda()).cpu()
+            - nms.soft_nms_scores(boxes, scores)).abs().max().item() <= 1e-5
+    xyxy = torch.cat([rect.amin(1), rect.amax(1)], 1)
+    s = torch.from_numpy(rng.permutation(40).astype(np.float32))
+    assert torch.equal(nms.box_nms(xyxy.cuda(), s.cuda(), 0.3).cpu(),
+                       nms.box_nms(xyxy, s, 0.3))
+
+
+def test_align_collate_on_card_matches_cpu(gen):
+    """The STR collates resize on the card bit for bit as on the CPU
+    (cv2's integer arithmetic), keep-ratio and LISTER's mask too."""
+    import chip_smoke as cs
+    from advancedliteratemachinery_tpu_torch.data.str_dataset import (
+        AlignCollate, ListerCollate)
+    rng = np.random.default_rng(22)
+    samples = [(cs.word_crop(rng, int(h), int(w)), "w") for h, w in zip(
+        rng.integers(16, 97, 12), rng.integers(32, 385, 12))]
+    for keep in (False, True):
+        got, _ = AlignCollate(keep_ratio_with_pad=keep, device="cuda")(
+            samples)
+        want, _ = AlignCollate(keep_ratio_with_pad=keep, device="cpu")(
+            samples)
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    gb, gm, _ = ListerCollate(device="cuda")(samples)
+    wb, wm, _ = ListerCollate(device="cpu")(samples)
+    assert torch.equal(gb.cpu(), wb) and torch.equal(gm.cpu(), wm)
+
+
+def test_eval_cli_on_card_matches_cpu(gen, no_tf32, tmp_path, capsys):
+    """`create-lmdb` + `eval` at tiny width in f32: the card's JSON equals
+    the CPU's (f32 launches no kernel), on sets labelled with the CPU
+    engine's own strings, one altered."""
+    import json
+
+    import chip_smoke as cs
+    from advancedliteratemachinery_tpu_torch import cli
+    from advancedliteratemachinery_tpu_torch.eval.str_eval import (
+        benchmark_all_eval)
+    from advancedliteratemachinery_tpu_torch.models import mgp_str
+    rng = np.random.default_rng(23)
+    paths = []
+    for i in range(10):
+        h, w = int(rng.integers(16, 97)), int(rng.integers(32, 385))
+        paths.append(str(tmp_path / f"c{i}.png"))
+        with open(paths[-1], "wb") as f:
+            f.write(cs.png_bytes(cs.word_crop(rng, h, w)))
+    cfg = {"vit": {"embed_dim": 32, "depth": 2, "num_heads": 2},
+           "bpe_vocab_size": 64, "wp_vocab_size": 64, "batch_max_length": 5}
+    common = ["--variant", "tiny", "--batch-max-length", "6",
+              "--batch-size", "4", "--config-json", json.dumps(cfg)]
+    real = mgp_str.MGPSTR
+
+    def f32(*a, **k):
+        return real(*a, **{**k, "policy": FP32_POLICY})
+
+    mgp_str.MGPSTR = f32
+    try:
+        gt = tmp_path / "gt.txt"
+        gt.write_text("".join(f"{p}\tx\n" for p in paths))
+        assert cli.main(["create-lmdb", str(gt), str(tmp_path / "a")]) == 0
+        from argparse import Namespace
+        engine = cli._rec_engine(Namespace(
+            model="mgp_str", variant="tiny", device="cpu", torch_ckpt=None,
+            batch_max_length=6, config_json=json.dumps(cfg)))
+        seen = []
+
+        def record(batch):
+            out = engine.recognize(batch)
+            seen.extend(t for t, _, _ in out)
+            return out
+        benchmark_all_eval(record, [str(tmp_path / "a")], max_length=6,
+                           batch_size=4, device="cpu")
+        seen[3] = "q" + seen[3][1:]
+        gt.write_text("".join(f"{p}\t{s}\n" for p, s in zip(paths, seen)))
+        assert cli.main(["create-lmdb", str(gt), str(tmp_path / "b")]) == 0
+        capsys.readouterr()
+        out = {}
+        for device in ("cuda", "cpu"):
+            before = dict(_kernels.LAUNCHES)
+            assert cli.main(["eval", "--data", str(tmp_path / "b"),
+                             "--device", device, *common]) == 0
+            out[device] = json.loads(capsys.readouterr().out)
+            assert dict(_kernels.LAUNCHES) == before
+    finally:
+        mgp_str.MGPSTR = real
+    assert out["cuda"] == out["cpu"]
+    assert out["cpu"]["total_samples"] == 10 and out["cpu"]["b"] < 1.0

@@ -38,6 +38,10 @@ from advancedliteratemachinery_tpu_torch.models import abinet, levocr
 from advancedliteratemachinery_tpu_torch.ops import levenshtein as lev
 
 torch.set_num_threads(2)
+# the JAX reference compiled without LLVM's backend optimizations: it
+# compiles in a fraction of the time, and its arithmetic is the op-by-op
+# arithmetic (no multiply-adds contracted into FMAs)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 VISION_KW = dict(max_length=8, num_classes=37, d_model=64,
                  backbone_layers=1)
@@ -145,7 +149,8 @@ def jax_run():
         return (jm.apply(v, x, a, b, train=False),
                 jm.apply(v, x, method=lambda mod, x: mod.vision(x)))
 
-    heads, vis = jax.tree.map(np.asarray, jax.jit(heads_and_vision)(
+    heads, vis = jax.tree.map(np.asarray, jax.jit(
+        heads_and_vision, compiler_options=FAST_COMPILE)(
         variables, jnp.asarray(x), tok, jnp.asarray(masked)))
     return dict(variables=variables, u8=u8, x=x, noised=noised,
                 masked=masked, texts=texts, tokens=tokens, scores=scores,

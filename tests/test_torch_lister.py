@@ -25,6 +25,10 @@ from advancedliteratemachinery_tpu_torch.models.focalnet import (
     FocalNet, FocalNetConfig, downsample_mask)
 
 torch.set_num_threads(2)
+# the JAX reference compiled without LLVM's backend optimizations: it
+# compiles in a fraction of the time, and its arithmetic is the op-by-op
+# arithmetic (no multiply-adds contracted into FMAs)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 FOCAL = dict(embed_dim=8, depths=(1, 1, 1, 1), layerscale_value=0.1)
 LISTER_KW = dict(max_ch=6, nhead=2, window_size=5)
@@ -83,7 +87,8 @@ def jax_run():
     params = random_params(shapes["params"], seed=2)
     want, state = jax.jit(lambda p, x, m: jm.apply(
         {"params": p}, x, m, capture_intermediates=lambda mod, n: (
-            mod.name == "encoder" and n == "__call__")))(
+            mod.name == "encoder" and n == "__call__")),
+        compiler_options=FAST_COMPILE)(
         params, jnp.asarray(x), jnp.asarray(mask))
     want = jax.tree_util.tree_map(np.asarray, want)
     feats = jax.tree_util.tree_map(

@@ -43,6 +43,10 @@ from advancedliteratemachinery_tpu_torch.ops import heatmap as theat
 from test_lore import TINY_LORE as J_TINY_LORE
 
 torch.set_num_threads(2)
+# the JAX reference compiled without LLVM's backend optimizations: it
+# compiles in a fraction of the time, and its arithmetic is the op-by-op
+# arithmetic (no multiply-adds contracted into FMAs)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 MAP_TOL = dict(rtol=1e-5, atol=1e-5)   # of each map's max; f32 sum order
 
@@ -112,8 +116,8 @@ def lore_pair():
         want, state = jax.jit(lambda v, x: jm.apply(
             v, x, method=JLORE.infer,
             capture_intermediates=lambda m, n: (m.name == "backbone"
-                                                and n == "__call__")))(
-            variables, jnp.asarray(x))
+                                                and n == "__call__")),
+            compiler_options=FAST_COMPILE)(variables, jnp.asarray(x))
     want = jax.tree_util.tree_map(np.asarray, want)
     maps = jax.tree_util.tree_map(
         np.asarray, state["intermediates"]["backbone"]["__call__"][0])

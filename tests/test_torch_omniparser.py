@@ -40,6 +40,10 @@ from advancedliteratemachinery_tpu_torch.eval import spotting_eval
 from advancedliteratemachinery_tpu_torch.models import omniparser, swin
 
 torch.set_num_threads(2)
+# the JAX reference compiled without LLVM's backend optimizations: it
+# compiles in a fraction of the time, and its arithmetic is the op-by-op
+# arithmetic (no multiply-adds contracted into FMAs)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 SWIN_KW = dict(embed_dim=8, depths=(2, 1, 1, 2), num_heads=(1, 2, 2, 2),
                window_size=4)
@@ -169,7 +173,8 @@ def jax_run():
         out["src"] = inter["input_proj"]["__call__"][0]
         return out
 
-    out = jax.tree.map(np.asarray, jax.jit(run)(params, x, mask, seqs))
+    out = jax.tree.map(np.asarray, jax.jit(
+        run, compiler_options=FAST_COMPILE)(params, x, mask, seqs))
     return dict(params=params, x=x, mask=mask, seqs=seqs, out=out,
                 port=load_flax_params(port, params))
 

@@ -36,6 +36,10 @@ from advancedliteratemachinery_tpu_torch.ops.image import crop_rects
 from test_torch_mgp_str import VIT, VOCABS, random_flax_tree
 
 torch.set_num_threads(2)
+# the JAX reference compiled without LLVM's backend optimizations: it
+# compiles in a fraction of the time, and its arithmetic is the op-by-op
+# arithmetic (no multiply-adds contracted into FMAs)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 P, PH, PW, K = 2, 64, 96, 8
 DB_CFG = dict(width=8, fpn_dim=16, head_dim=8)
@@ -61,12 +65,13 @@ def test_spotting_slice_matches():
     jengine = JInference(jrec, rparams, CharCodec(), input_dtype=jnp.float32,
                          fused_decode="never")
 
-    prob = jnp.maximum(jax.jit(jdet.apply)(dvars, jnp.asarray(pages))
+    prob = jnp.maximum(jax.jit(jdet.apply, compiler_options=FAST_COMPILE)(
+        dvars, jnp.asarray(pages))
                        ["prob"][..., 0], template[None])
     jq, js, jv = j_extract(prob, max_boxes=K)
     crops = j_crop(jnp.asarray(pages), jq, dtype=jnp.float32)
-    want = jax.jit(jengine._decode_all)(jengine.params,
-                                        crops.reshape(P * K, 32, 128, 3))
+    want = jax.jit(jengine._decode_all, compiler_options=FAST_COMPILE)(
+        jengine.params, crops.reshape(P * K, 32, 128, 3))
 
     tdet = DBDetector(DBConfig(**DB_CFG), policy=FP32_POLICY, device="cpu")
     load_flax_params(tdet, dvars["params"], dvars["batch_stats"])

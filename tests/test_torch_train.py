@@ -32,6 +32,10 @@ from advancedliteratemachinery_tpu_torch.models.vit import ViTConfig
 from test_torch_mgp_str import random_flax_tree
 
 torch.set_num_threads(2)
+# the JAX reference compiled without LLVM's backend optimizations: it
+# compiles in a fraction of the time, and its arithmetic is the op-by-op
+# arithmetic (no multiply-adds contracted into FMAs)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 VIT = dict(embed_dim=128, depth=2, num_heads=2)
 VOCABS = dict(bpe_vocab_size=300, wp_vocab_size=200)   # padded 384, 256
@@ -71,7 +75,8 @@ def _jax_loss_and_grads(jm, params, batch):
         out = jm.apply({"params": p}, batch["images"])
         m = jtrain.mgp_str_loss(out, batch)
         return m["loss"], m
-    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(params)
+    return jax.jit(jax.value_and_grad(loss_fn, has_aux=True),
+                   compiler_options=FAST_COMPILE)(params)
 
 
 def test_cross_entropy_matches_jax():
