@@ -344,7 +344,12 @@ def _pipeline_model_fn(args):
     as the JAX command builds it (MGP-STR-base at batch_max_length 25, DB
     with the host `extract_boxes` at the read command's default threshold,
     0.3), on `--device`; a page's response is its words' texts, one a
-    line."""
+    line. Workers decode one page file at a time: the host decoders make
+    many short NumPy calls, and threads running them at once spend
+    several times the CPU a page and run slower than one thread
+    (`collect_profile.py` measures it); decoded one at a time, four
+    threads keep one thread's pace."""
+    import threading
     from argparse import Namespace
 
     from advancedliteratemachinery_tpu_torch.pipelines.document import (
@@ -358,8 +363,12 @@ def _pipeline_model_fn(args):
     pipe = GeneralTextReading(TextDetection(_db_detect_fn(sub)),
                               _recognition(sub, _rec_engine(sub)))
 
+    decoding = threading.Lock()
+
     def model_fn(image_path, question):
-        out = pipe(_load_image(image_path))
+        with decoding:
+            image = _load_image(image_path)
+        out = pipe(image)
         return "\n".join(inst.get("text", "")
                          for inst in out.get("instances", []))
 
@@ -370,8 +379,8 @@ def cmd_ccocr_collect(args) -> int:
     """Prediction collection over a CC-OCR-format benchmark tree
     (reference Benchmarks/CC-OCR/example.py): per released dataset, run a
     model on each qa.jsonl entry and write the per-image response JSONs
-    that `ccocr-eval` consumes, with resume + parallel workers (threads
-    sharing one card)."""
+    that `ccocr-eval` consumes, with resume + parallel workers (threads;
+    the pipeline's would share one card, so it runs on one by default)."""
     import importlib
     import os
 
@@ -399,7 +408,9 @@ def cmd_ccocr_collect(args) -> int:
     stats = collect_predictions(
         index, base_dir=base, output_dir=args.output_dir, model_fn=model_fn,
         model_name=args.model_name or args.model.replace(":", "_"),
-        workers=args.workers, resume=not args.no_resume)
+        workers=(args.workers if args.workers is not None
+                 else 1 if spec == "pipeline" else 4),
+        resume=not args.no_resume)
     print(json.dumps(stats, indent=2))
     return 0
 
@@ -533,7 +544,12 @@ def main(argv=None) -> int:
                         "callable(image_path, question) -> text")
     p.add_argument("--model-name", default=None,
                    help="output subdirectory name (default: --model)")
-    p.add_argument("--workers", type=int, default=4)
+    p.add_argument("--workers", type=int, default=None,
+                   help="threads calling the model at once (default: 1 for "
+                        "'pipeline', whose threads share one card and gain "
+                        "nothing over one; 4, the reference's, for 'dummy' "
+                        "and 'import:', whose callable may be a network "
+                        "client)")
     p.add_argument("--no-resume", action="store_true",
                    help="recompute responses that already exist")
     p.add_argument("--base-dir", default=None,

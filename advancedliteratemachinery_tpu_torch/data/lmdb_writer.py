@@ -117,8 +117,7 @@ def _build_meta(pgno: int, txnid: int, root: int, entries: int,
     return bytes(page)
 
 
-def write_lmdb(path: str, data: Dict[bytes, bytes],
-               max_leaf_items: int = MAX_LEAF_ITEMS) -> None:
+def write_lmdb(path: str, data: Dict[bytes, bytes]) -> None:
     """Write data.mdb at `path` (a file path)."""
     items = sorted(data.items())
     pages: Dict[int, bytes] = {}
@@ -142,7 +141,7 @@ def write_lmdb(path: str, data: Dict[bytes, bytes],
     # leaves, then each level of branch pages above them, the root last;
     # the first key of a branch page is empty (LMDB never compares it)
     level = []                                   # (low key, page number)
-    for group in _pack([len(n) for n in nodes], max_leaf_items):
+    for group in _pack([len(n) for n in nodes], MAX_LEAF_ITEMS):
         pages[next_pg] = _build_page(next_pg, P_LEAF,
                                      [nodes[i] for i in group])
         level.append((items[group[0]][0] if group else b"", next_pg))

@@ -9,9 +9,10 @@ module and never reach a kernel.
 
 `LAUNCHES` counts kernel launches per wrapper; a wrapper adds one
 (`count`) where it launches its kernel and nowhere else, so a run can show
-that its main path went through the kernels. Loading a library and
-counting take a lock, so threads that share one card (the CC-OCR
-harness's workers) neither build a kernel twice nor lose a count.
+that its main path went through the kernels. Threads may share one card
+(the CC-OCR harness's workers): loading a library takes one lock, so no
+kernel is built twice, and counting takes another, so no count is lost.
+A launch of a loaded kernel takes only the second.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -46,12 +47,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: collections.Counter = collections.Counter()
 BUILD_LOG: Dict[str, str] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
-_LOCK = threading.Lock()
+_FUNCS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
 
 
 def count(name: str) -> None:
     """Add one launch of kernel `name` to LAUNCHES."""
-    with _LOCK:
+    with _COUNT_LOCK:
         LAUNCHES[name] += 1
 
 
@@ -121,7 +124,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """The C entry point `symbol` of kernel library `name`, built and loaded
     on first use, returning a CUDA error code."""
-    with _LOCK:
+    fn = _FUNCS.get((name, symbol))
+    if fn is not None:
+        return fn
+    with _LOAD_LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             build([name])
@@ -132,6 +138,7 @@ def kernel_function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+        _FUNCS[name, symbol] = fn
     return fn
 
 

@@ -25,12 +25,9 @@ from advancedliteratemachinery_tpu_torch.engine.convert import (
     load_flax_params)
 from advancedliteratemachinery_tpu_torch.ops.deform_conv import (
     DeformConv2d, deform_conv2d)
+from test_torch_mgp_str import FAST_COMPILE
 
 torch.set_num_threads(2)
-# the JAX reference compiled without LLVM's backend optimizations: it
-# compiles in a fraction of the time, and its arithmetic is the op-by-op
-# arithmetic (no multiply-adds contracted into FMAs)
-FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 B, H, W, CI, CO = 2, 20, 24, 5, 7      # H off the TPU kernel's 8-row bands
 TOL = dict(rtol=1e-4, atol=1e-4)       # f32 both sides, summation order

@@ -34,12 +34,9 @@ from advancedliteratemachinery_tpu_torch.models.docxlayout import (
     DocXLayout, DocXLayoutConfig, make_layout_predict_fn)
 from test_docxlayout import TINY as J_TINY
 from test_torch_lore import random_lore_tree
+from test_torch_mgp_str import FAST_COMPILE
 
 torch.set_num_threads(2)
-# the JAX reference compiled without LLVM's backend optimizations: it
-# compiles in a fraction of the time, and its arithmetic is the op-by-op
-# arithmetic (no multiply-adds contracted into FMAs)
-FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 REL_TOL = 1e-4        # of each output's largest magnitude, float32
 

@@ -2,8 +2,9 @@
 `safetensors`, PIL, cv2, lxml, `Levenshtein` or `lmdb` (the card's machine
 has none of them), and importing it builds no kernel: every module of
 `advancedliteratemachinery_tpu_torch` and the module-level code of
-`chip_smoke.py` and `k4_repeats.py` import in a process where all of them
-are blocked, and the CLI's evaluation commands parse there."""
+`chip_smoke.py` and the root's measuring scripts (`k4_repeats.py`,
+`kernel_ab.py`, `collect_profile.py`) import in a process where all of
+them are blocked, and the CLI's evaluation commands parse there."""
 
 import pathlib
 import subprocess
@@ -54,9 +55,10 @@ def test_port_imports_without_jax():
         assert abs(teds.TEDS().evaluate("<table><tr><td>a</table>",
                                         "<table><tr><td>b</table>")
                    - 2 / 3) < 1e-12
-        import chip_smoke, k4_repeats
+        import chip_smoke, collect_profile, k4_repeats, kernel_ab
         from {PKG}.ops import _kernels
-        assert not _kernels._LIBS and not any(_kernels.LAUNCHES.values())
+        assert not _kernels._LIBS and not _kernels._FUNCS
+        assert not any(_kernels.LAUNCHES.values())
         assert not any(m.startswith(("jax", "flax", "regex", "safetensors",
                                      "PIL", "cv2", "lxml", "Levenshtein",
                                      "lmdb"))

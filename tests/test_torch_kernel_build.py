@@ -1,8 +1,12 @@
 """CPU checks of what surrounds the port's CUDA kernels: the build cache key,
-the weight packing the deformable-conv wrapper does for TMA, and the device
-default of the batch helpers. No nvcc and no card are needed."""
+loading and counting from many threads, the weight packing the
+deformable-conv wrapper does for TMA, and the device default of the batch
+helpers. No nvcc and no card are needed."""
 
+import collections
 import shutil
+import threading
+import types
 
 import numpy as np
 import pytest
@@ -111,3 +115,41 @@ def test_batch_helpers_default_to_the_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         batches.prefetch_batches(iter([batch]))
     assert batches.to_device(batch, "cpu")["images"].device.type == "cpu"
+
+
+def test_threads_load_a_kernel_once_and_lose_no_count(monkeypatch):
+    """Eight threads asking for one entry point while its library loads
+    (slowly, as nvcc builds) get one function, built and loaded once; their
+    counts all land."""
+    calls = collections.Counter()
+
+    def build(names):
+        calls["build"] += 1
+        threading.Event().wait(0.05)
+
+    def cdll(path):
+        calls["load"] += 1
+        return types.SimpleNamespace(alm_error_string=types.SimpleNamespace(),
+                                     alm_entry=types.SimpleNamespace())
+
+    monkeypatch.setattr(_kernels, "build", build)
+    monkeypatch.setattr(_kernels.ctypes, "CDLL", cdll)
+    monkeypatch.setattr(_kernels, "_lib_path", lambda name: name)
+    monkeypatch.setattr(_kernels, "_LIBS", {})
+    monkeypatch.setattr(_kernels, "_FUNCS", {})
+    monkeypatch.setattr(_kernels, "LAUNCHES", collections.Counter())
+    fns = []
+
+    def launch():
+        for _ in range(2000):
+            fns.append(_kernels.kernel_function("k", "alm_entry", [int]))
+            _kernels.count("k")
+
+    threads = [threading.Thread(target=launch) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert calls == {"build": 1, "load": 1}
+    assert len({id(f) for f in fns}) == 1 and fns[0].argtypes == [int]
+    assert _kernels.LAUNCHES == {"k": 16000}

@@ -36,12 +36,9 @@ from advancedliteratemachinery_tpu_torch.engine.convert import (
 from advancedliteratemachinery_tpu_torch.engine.infer import LevOCRInference
 from advancedliteratemachinery_tpu_torch.models import abinet, levocr
 from advancedliteratemachinery_tpu_torch.ops import levenshtein as lev
+from test_torch_mgp_str import FAST_COMPILE
 
 torch.set_num_threads(2)
-# the JAX reference compiled without LLVM's backend optimizations: it
-# compiles in a fraction of the time, and its arithmetic is the op-by-op
-# arithmetic (no multiply-adds contracted into FMAs)
-FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 VISION_KW = dict(max_length=8, num_classes=37, d_model=64,
                  backbone_layers=1)

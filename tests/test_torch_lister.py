@@ -23,12 +23,9 @@ from advancedliteratemachinery_tpu_torch.engine.infer import LISTERInference
 from advancedliteratemachinery_tpu_torch.models import lister
 from advancedliteratemachinery_tpu_torch.models.focalnet import (
     FocalNet, FocalNetConfig, downsample_mask)
+from test_torch_mgp_str import FAST_COMPILE
 
 torch.set_num_threads(2)
-# the JAX reference compiled without LLVM's backend optimizations: it
-# compiles in a fraction of the time, and its arithmetic is the op-by-op
-# arithmetic (no multiply-adds contracted into FMAs)
-FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 FOCAL = dict(embed_dim=8, depths=(1, 1, 1, 1), layerscale_value=0.1)
 LISTER_KW = dict(max_ch=6, nhead=2, window_size=5)

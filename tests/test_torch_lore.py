@@ -41,12 +41,9 @@ from advancedliteratemachinery_tpu_torch.models.dla import (
 from advancedliteratemachinery_tpu_torch.models.lore import LORE, LoreConfig
 from advancedliteratemachinery_tpu_torch.ops import heatmap as theat
 from test_lore import TINY_LORE as J_TINY_LORE
+from test_torch_mgp_str import FAST_COMPILE
 
 torch.set_num_threads(2)
-# the JAX reference compiled without LLVM's backend optimizations: it
-# compiles in a fraction of the time, and its arithmetic is the op-by-op
-# arithmetic (no multiply-adds contracted into FMAs)
-FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 MAP_TOL = dict(rtol=1e-5, atol=1e-5)   # of each map's max; f32 sum order
 

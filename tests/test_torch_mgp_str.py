@@ -30,6 +30,11 @@ from advancedliteratemachinery_tpu_torch.models.vit import (
     ViTConfig, VisionTransformer)
 
 torch.set_num_threads(2)
+# how the port's tests compile the JAX reference they hold the port to:
+# without LLVM's backend optimizations, so that it compiles in a fraction
+# of the time and its arithmetic is the op-by-op arithmetic (no
+# multiply-adds contracted into FMAs)
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 VIT = dict(embed_dim=192, depth=2, num_heads=3)
 VOCABS = dict(bpe_vocab_size=1000, wp_vocab_size=1100)   # padded 1024, 1152

@@ -38,12 +38,9 @@ from advancedliteratemachinery_tpu_torch.engine.convert import (
     flax_state_dict, load_flax_params)
 from advancedliteratemachinery_tpu_torch.eval import spotting_eval
 from advancedliteratemachinery_tpu_torch.models import omniparser, swin
+from test_torch_mgp_str import FAST_COMPILE
 
 torch.set_num_threads(2)
-# the JAX reference compiled without LLVM's backend optimizations: it
-# compiles in a fraction of the time, and its arithmetic is the op-by-op
-# arithmetic (no multiply-adds contracted into FMAs)
-FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 SWIN_KW = dict(embed_dim=8, depths=(2, 1, 1, 2), num_heads=(1, 2, 2, 2),
                window_size=4)

@@ -33,13 +33,9 @@ from advancedliteratemachinery_tpu_torch.models.vit import ViTConfig
 from advancedliteratemachinery_tpu_torch.ops.cc_extract import (
     extract_boxes_device)
 from advancedliteratemachinery_tpu_torch.ops.image import crop_rects
-from test_torch_mgp_str import VIT, VOCABS, random_flax_tree
+from test_torch_mgp_str import FAST_COMPILE, VIT, VOCABS, random_flax_tree
 
 torch.set_num_threads(2)
-# the JAX reference compiled without LLVM's backend optimizations: it
-# compiles in a fraction of the time, and its arithmetic is the op-by-op
-# arithmetic (no multiply-adds contracted into FMAs)
-FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 P, PH, PW, K = 2, 64, 96, 8
 DB_CFG = dict(width=8, fpn_dim=16, head_dim=8)

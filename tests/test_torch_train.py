@@ -29,13 +29,9 @@ from advancedliteratemachinery_tpu_torch.models.layers import (
 from advancedliteratemachinery_tpu_torch.models.mgp_str import (
     MGPSTR, MGPSTRConfig)
 from advancedliteratemachinery_tpu_torch.models.vit import ViTConfig
-from test_torch_mgp_str import random_flax_tree
+from test_torch_mgp_str import FAST_COMPILE, random_flax_tree
 
 torch.set_num_threads(2)
-# the JAX reference compiled without LLVM's backend optimizations: it
-# compiles in a fraction of the time, and its arithmetic is the op-by-op
-# arithmetic (no multiply-adds contracted into FMAs)
-FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
 VIT = dict(embed_dim=128, depth=2, num_heads=2)
 VOCABS = dict(bpe_vocab_size=300, wp_vocab_size=200)   # padded 384, 256
