@@ -3,8 +3,12 @@ commands of `advancedliteratemachinery_tpu/cli.py`):
 
   python -m advancedliteratemachinery_tpu_torch.cli <command> ...
 
+  models [--cost MODEL]        list registered models/codecs/modules
   recognize IMG [IMG...]       word-crop recognition (mgp_str/lister/levocr)
   read / structurize / table   page pipelines → JSON
+  vie IMG                      OmniParser key-information extraction → JSON
+  table-html IMG               OmniParser table recognition → HTML
+  table-eval DATA.jsonl        PubTabNet TEDS / S-TEDS evaluation
   convert DOC                  whole image/PDF → per-page JSON
   serve                        HTTP recognition service (continuous batching)
   eval --data LMDB...          STR benchmark suite (per-set + weighted acc)
@@ -15,7 +19,10 @@ commands of `advancedliteratemachinery_tpu/cli.py`):
 
 The arguments are the JAX CLI's. Models run on the card unless
 `--device cpu` is given. Weights are seeded at random, or a reference
-torch checkpoint of the recognizer through `--torch-ckpt`. Three JAX
+torch checkpoint of the recognizer (of OmniParser for `vie`, `table-html`
+and `table-eval`) through `--torch-ckpt`. `vie`, `table-html` and
+`table-eval` resize pages as the JAX commands' PIL `Image.resize` does
+(BICUBIC), on the device (`ops/image.py` `resize_bicubic_u8`). Three JAX
 arguments are refused with a clear error: `--ckpt` (the JAX package's
 Orbax checkpoints), `--visualize` and `--formula-onnx`. Pages and crops
 are PNG (any bit depth, interlaced or not), baseline JPEG or `.npy`
@@ -61,6 +68,70 @@ def _load_image(path: str):
         load_image)
 
     return load_image(path)
+
+
+# the port's modules that register components (core/registry.py)
+REGISTERING = ("codecs.char_codec", "codecs.coords", "codecs.seq_codec",
+               "codecs.subword", "models.db", "models.docxlayout",
+               "models.levocr", "models.lister", "models.lore",
+               "models.mgp_str", "models.omniparser", "pipelines.modules")
+
+
+def cmd_models(args) -> int:
+    import importlib
+
+    from advancedliteratemachinery_tpu_torch.core.registry import (
+        CODECS, MODELS, PIPELINE_MODULES)
+
+    for m in REGISTERING:
+        importlib.import_module(f"advancedliteratemachinery_tpu_torch.{m}")
+    print("models:  ", ", ".join(MODELS))
+    print("codecs:  ", ", ".join(CODECS))
+    print("modules: ", ", ".join(PIPELINE_MODULES))
+    if getattr(args, "cost", None):
+        _print_model_cost(args.cost, args.variant, args.device)
+    return 0
+
+
+def _print_model_cost(name: str, variant: str, device) -> None:
+    """Params + forward GFLOPs at B=1 on a 32x128 crop for one recognition
+    model, the reference's cost probes (MGP-STR test_final.py:391
+    get_flops, LISTER model_cost.py). The forward runs in float32 on
+    `device`, where every product goes through the PyTorch ops that
+    `utils/profiling.py` `flops_estimate` counts (a hand-written kernel is
+    opaque to it)."""
+    import torch
+
+    from advancedliteratemachinery_tpu_torch.core.precision import (
+        FP32_POLICY)
+    from advancedliteratemachinery_tpu_torch.utils.profiling import (
+        flops_estimate)
+
+    if name == "mgp_str":
+        from advancedliteratemachinery_tpu_torch.models.mgp_str import (
+            MGPSTR, MGPSTRConfig)
+
+        model = MGPSTR(MGPSTRConfig(variant=variant), policy=FP32_POLICY,
+                       device=device)
+        args = (torch.zeros((1, 32, 128, 3),
+                            device=next(model.parameters()).device),)
+    elif name == "lister":
+        from advancedliteratemachinery_tpu_torch.models.lister import (
+            LISTER, LISTERConfig)
+
+        model = LISTER(LISTERConfig(variant=variant), policy=FP32_POLICY,
+                       device=device)
+        dev = next(model.parameters()).device
+        args = (torch.zeros((1, 32, 128, 3), device=dev),
+                torch.ones((1, 32, 128), device=dev))
+    else:
+        print(f"cost: unsupported model {name!r} (mgp_str, lister)")
+        return
+    n_params = sum(p.numel() for p in model.parameters())
+    flops = flops_estimate(model, *args)
+    print(f"cost[{name}-{variant}]: params={n_params / 1e6:.2f}M"
+          + (f"  fwd={flops / 1e9:.2f} GFLOPs (B=1 32x128)"
+             if flops else ""))
 
 
 def _cfg_overrides(cfg, json_str):
@@ -241,6 +312,161 @@ def cmd_table(args) -> int:
                         _recognition(args, engine))
     print(json.dumps(pipe(_load_image(args.image)), indent=2,
                      default=float))
+    return 0
+
+
+def _omniparser(args, vie_categories: int):
+    """OmniParser at `--variant` with `vie_categories` trailing class
+    tokens, on `--device`, seeded at random or from `--torch-ckpt`."""
+    from advancedliteratemachinery_tpu_torch.engine import checkpoint as ck
+    from advancedliteratemachinery_tpu_torch.models.omniparser import (
+        OmniParser, OmniParserConfig)
+
+    model = OmniParser(OmniParserConfig(swin_variant=args.variant,
+                                        vie_categories=vie_categories),
+                       device=args.device)
+    if args.torch_ckpt:
+        ck.import_omniparser(ck.load_torch_state_dict(args.torch_ckpt),
+                             model)
+    return model
+
+
+def _host(out) -> dict:
+    return {k: t.cpu().numpy() for k, t in out.items()}
+
+
+def cmd_vie(args) -> int:
+    """Key-information extraction over one page image: OmniParser VIE
+    decode → entity JSON (reference main.py --eval with --infer_vie +
+    engine/val.py:39-44 per-image json dump)."""
+    import torch
+
+    from advancedliteratemachinery_tpu_torch.codecs.coords import (
+        CORD_CLASSES, SROIE_CLASSES)
+    from advancedliteratemachinery_tpu_torch.eval.spotting_eval import (
+        decode_vie_outputs)
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        resize_bicubic_u8)
+
+    classes = CORD_CLASSES if args.class_set == "cord" else SROIE_CLASSES
+    model = _omniparser(args, len(classes))
+    image = _load_image(args.image)
+    orig_h, orig_w = image.shape[:2]
+    size = args.image_size
+    resized = resize_bicubic_u8(image, (size, size),
+                                model.input_proj.weight.device)
+    x = resized[None].float() / 255.0 * 2.0 - 1.0
+    with torch.inference_mode():
+        out = _host(model.infer_vie(x))
+    entities = decode_vie_outputs(out, model.vocab_layout, classes,
+                                  (orig_h, orig_w))
+    print(json.dumps({"image": args.image, "entities": entities},
+                     indent=2, default=float))
+    return 0
+
+
+def _build_table_model(args):
+    """OmniParser with the table class band + loaded weights → (model,
+    vocab, run_page: a resized uint8 page [size, size, 3] → infer_vie's
+    outputs as NumPy arrays)."""
+    import torch
+
+    from advancedliteratemachinery_tpu_torch.data.pubtabnet import (
+        N_TABLE_CLASSES)
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        as_device_tensor, normalize_crops)
+
+    model = _omniparser(args, N_TABLE_CLASSES)
+    dev = model.input_proj.weight.device
+
+    def run_page(page_u8) -> dict:
+        x = normalize_crops(as_device_tensor(page_u8, dev)[None],
+                            dtype=torch.float32)
+        with torch.inference_mode():
+            return _host(model.infer_vie(x))
+
+    return model, model.vocab_layout, run_page
+
+
+def cmd_table_html(args) -> int:
+    """Table recognition over one table image: OmniParser TR decode →
+    PubTabNet-dialect HTML (see data/pubtabnet.py for the triplet
+    scheme)."""
+    from advancedliteratemachinery_tpu_torch.data.pubtabnet import (
+        decode_table_outputs)
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        resize_bicubic_u8)
+
+    model, v, run_page = _build_table_model(args)
+    image = _load_image(args.image)
+    orig_h, orig_w = image.shape[:2]
+    size = args.image_size
+    resized = resize_bicubic_u8(image, (size, size),
+                                model.input_proj.weight.device)
+    res = decode_table_outputs(run_page(resized), v, (orig_h, orig_w))
+    print(json.dumps({"image": args.image, "html": res["html"],
+                      "structure_html": res["structure_html"],
+                      "cells": res["cells"]}, indent=2, default=float))
+    return 0
+
+
+def cmd_table_eval(args, timer=None) -> int:
+    """TEDS / S-TEDS over a PubTabNet-format jsonl (the OmniParser README
+    protocol: infer_vie per table image → HTML reconstruction → TEDS
+    against the normalized ground-truth HTML). `timer`, a
+    `utils.profiling.StepTimer`, gets the stages of each table: `load`
+    (the file's decode), `resize` (on the device), `infer` (infer_vie,
+    its outputs on the host), `decode` (the HTML) and `teds`."""
+    import os
+
+    from advancedliteratemachinery_tpu_torch.codecs.coords import (
+        PRINTABLE_CHARS)
+    from advancedliteratemachinery_tpu_torch.data.pubtabnet import (
+        PubTabNetDataset, decode_table_outputs)
+    from advancedliteratemachinery_tpu_torch.eval.teds import TEDS
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        resize_bicubic_u8)
+    from advancedliteratemachinery_tpu_torch.utils.profiling import (
+        StepTimer)
+
+    ds = PubTabNetDataset(args.data, args.img_root or ".",
+                          chars=PRINTABLE_CHARS, split=args.split,
+                          max_samples=args.limit)
+    if not len(ds):
+        print(json.dumps({"error": "no samples matched",
+                          "data": args.data, "split": args.split}))
+        return 1
+    model, v, run_page = _build_table_model(args)
+    dev = model.input_proj.weight.device
+    timer = timer or StepTimer()
+    teds, steds = TEDS(), TEDS(structure_only=True)
+    size = args.image_size
+    t_sum = s_sum = 0.0
+    per_sample = []
+    for i in range(len(ds)):
+        page = ds[i]
+        with timer.stage("load"):
+            image = _load_image(os.path.join(page["image_folder"],
+                                             page["file_name"]))
+        timer.start("resize")
+        resized = resize_bicubic_u8(image, (size, size), dev)
+        timer.stop("resize", resized)
+        with timer.stage("infer"):
+            out = run_page(resized)
+        with timer.stage("decode"):
+            res = decode_table_outputs(out, v, page["orig_size"])
+        with timer.stage("teds"):
+            t = teds.evaluate(res["html"], page["gt_html"])
+            s = steds.evaluate(res["structure_html"], page["gt_html"])
+        t_sum += t
+        s_sum += s
+        per_sample.append({"file": page["file_name"],
+                           "teds": t, "s_teds": s})
+    n = len(ds)
+    summary = {"samples": n, "teds": t_sum / n, "s_teds": s_sum / n}
+    if args.per_sample:
+        summary["per_sample"] = per_sample
+    print(json.dumps(summary, indent=2, default=float))
     return 0
 
 
@@ -433,7 +659,9 @@ def cmd_eval_det(args) -> int:
     return 0
 
 
-COMMANDS = {"recognize": cmd_recognize, "read": cmd_read,
+COMMANDS = {"models": cmd_models, "vie": cmd_vie,
+            "table-html": cmd_table_html, "table-eval": cmd_table_eval,
+            "recognize": cmd_recognize, "read": cmd_read,
             "structurize": cmd_structurize, "table": cmd_table,
             "convert": cmd_convert, "serve": cmd_serve, "eval": cmd_eval,
             "create-lmdb": cmd_create_lmdb, "ccocr-eval": cmd_ccocr_eval,
@@ -449,16 +677,59 @@ def _common(p, model: bool = True) -> None:
     p.add_argument("--ckpt", help="refused: the JAX package's Orbax "
                                   "checkpoints (use --torch-ckpt)")
     p.add_argument("--torch-ckpt",
-                   help="reference torch checkpoint of the recognizer")
+                   help="reference torch checkpoint of the command's "
+                        "model")
     p.add_argument("--device", default=None,
                    help="torch device (default: the CUDA card; 'cpu' runs "
                         "the plain versions on the CPU)")
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None) -> argparse.Namespace:
+    """The command line → its arguments (the arguments the port refuses
+    exit here with a message)."""
     parser = argparse.ArgumentParser(
         prog="alm-torch", description=__doc__.split("\n")[0])
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("models", help="list registered components")
+    p.add_argument("--cost", metavar="MODEL",
+                   help="also print params + forward GFLOPs for a "
+                        "recognition model (get_flops / model_cost.py)")
+    p.add_argument("--variant", default="tiny",
+                   choices=["tiny", "small", "base", "large"])
+    p.add_argument("--device", default=None,
+                   help="torch device of the --cost forward (default: the "
+                        "CUDA card)")
+
+    p = sub.add_parser("vie",
+                       help="key-information extraction (OmniParser VIE) "
+                            "→ entity JSON")
+    p.add_argument("image")
+    _common(p, model=False)
+    p.set_defaults(variant="base")
+    p.add_argument("--class-set", default="cord", choices=["cord", "sroie"])
+    p.add_argument("--image-size", type=int, default=640)
+
+    p = sub.add_parser("table-html",
+                       help="table recognition (OmniParser TR) → "
+                            "PubTabNet-dialect HTML")
+    p.add_argument("image")
+    _common(p, model=False)
+    p.set_defaults(variant="base")
+    p.add_argument("--image-size", type=int, default=640)
+
+    p = sub.add_parser("table-eval",
+                       help="TEDS/S-TEDS over a PubTabNet-format jsonl "
+                            "(OmniParser TR README protocol)")
+    p.add_argument("data", help="PubTabNet jsonl annotations")
+    p.add_argument("--img-root", help="table image directory")
+    p.add_argument("--split", help="filter on the jsonl split field")
+    p.add_argument("--limit", type=int, help="cap evaluated samples")
+    p.add_argument("--per-sample", action="store_true",
+                   help="include per-table scores in the JSON")
+    _common(p, model=False)
+    p.set_defaults(variant="base")
+    p.add_argument("--image-size", type=int, default=640)
 
     p = sub.add_parser("recognize",
                        help="recognize word crops (MGP-STR/LISTER/LevOCR)")
@@ -574,6 +845,11 @@ def main(argv=None) -> int:
 
     args = parser.parse_args(argv)
     _refuse_unported(args)
+    return args
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
     return COMMANDS[args.command](args)
 
 

@@ -12,6 +12,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from advancedliteratemachinery_tpu_torch.core.registry import CODECS
+
 DEFAULT_CHARSET = "0123456789abcdefghijklmnopqrstuvwxyz"
 GO = "[GO]"
 EOS = "[s]"
@@ -19,6 +21,7 @@ GO_ID = 0
 EOS_ID = 1
 
 
+@CODECS.register("char")
 class CharCodec:
     def __init__(self, charset: str = DEFAULT_CHARSET,
                  batch_max_length: int = 25):

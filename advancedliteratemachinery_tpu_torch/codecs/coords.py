@@ -24,12 +24,15 @@ from typing import List, Sequence
 
 import numpy as np
 
+from advancedliteratemachinery_tpu_torch.core.registry import CODECS
+
 PRINTABLE_CHARS = (
     " !\"#$%&'()*+,-./0123456789:;<=>?@ABCDEFGHIJKLMNOPQRSTUVWXYZ[\\]^_`"
     "abcdefghijklmnopqrstuvwxyz{|}~"
 )
 
 
+@CODECS.register("coord_seq")
 @dataclasses.dataclass(frozen=True)
 class CoordSeqVocab:
     num_bins: int = 1000

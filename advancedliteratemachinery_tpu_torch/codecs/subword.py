@@ -32,6 +32,8 @@ from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from advancedliteratemachinery_tpu_torch.core.registry import CODECS
+
 ASSETS = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "assets")
 
@@ -98,6 +100,7 @@ def _get_pairs(word: Tuple[str, ...]):
     return {(word[i], word[i + 1]) for i in range(len(word) - 1)}
 
 
+@CODECS.register("bpe")
 class BpeCodec:
     """Byte-level BPE (the GPT-2 algorithm)."""
 
@@ -236,6 +239,7 @@ def _wordpiece_tokenize(word: str, vocab: Dict[str, int], unk: str = "[UNK]",
     return tokens
 
 
+@CODECS.register("wordpiece")
 class WordpieceCodec:
     """BERT-uncased WordPiece: basic tokenization (lowercase, punctuation
     split), greedy longest-match subwords, [CLS]/[SEP] around, padded to

@@ -231,9 +231,10 @@ def _png_crc(r: _Reader, kind: bytes, body: bytes) -> None:
         raise ValueError(f"broken PNG file (bad checksum in {kind!r})")
 
 
-def _check_png(data: bytes) -> None:
+def _check_png(data: bytes) -> Tuple[int, int]:
     """`PngImageFile._open` (the chunks up to the first IDAT, each CRC
-    checked) and `verify` (every chunk from the IDAT to IEND)."""
+    checked) and `verify` (every chunk from the IDAT to IEND); returns
+    the IHDR's (width, height)."""
     r = _Reader(data)
     r.read(8)
     size, ctype = (0, 0), None          # ctype: colour type of a valid mode
@@ -271,13 +272,15 @@ def _check_png(data: bytes) -> None:
         _png_crc(r, kind, r.exact(length))
         kind, length = _png_chunk(r)
         if kind == b"IEND":
-            return
+            return size
 
 
-def _check_jpeg(data: bytes) -> None:
+def _check_jpeg(data: bytes) -> Tuple[int, int]:
     """`JpegImageFile._open`: the markers from SOI to the start of the
     scan, each segment read whole, the frame header parsed as PIL parses
-    it (8-bit samples, 1, 3 or 4 components, a non-empty size)."""
+    it (8-bit samples, 1, 3 or 4 components, a non-empty size); returns
+    the last frame header's (width, height). Nothing is decoded, so any
+    JPEG process (progressive and arithmetic too) gives its size."""
     r = _Reader(data)
     r.read(3)
     s = b"\xff"
@@ -330,6 +333,23 @@ def _check_jpeg(data: bytes) -> None:
             raise ValueError("JPEG: no marker found")
     if not layers or size[0] <= 0 or size[1] <= 0:
         raise ValueError("JPEG: not identified")
+    return size
+
+
+def image_size(data: bytes) -> Tuple[int, int]:
+    """(height, width) of a PNG or JPEG file's bytes, read from its header
+    as PIL's `Image.open(...).size` reads it (the PNG IHDR, the JPEG frame
+    header), after the checks of `image_check`; another format raises a
+    `ValueError` naming it."""
+    if data.startswith(PNG_SIGNATURE):
+        w, h = _check_png(data)
+    elif data.startswith(b"\xff\xd8\xff"):
+        w, h = _check_jpeg(data)
+    else:
+        kind = other_format(data) or "unrecognised"
+        raise ValueError(f"{kind} image: the port reads the size of PNG "
+                         f"and JPEG files")
+    return h, w
 
 
 def image_check(data: bytes) -> Optional[str]:

@@ -15,6 +15,10 @@ names, so only the leaves change:
   `running_mean`/`running_var`;
 - Embed `embedding` [N, D] → `Embedding.weight`, as it is.
 
+The LISTER baselines' GRU (`models/lister_baselines.py`) is flax's
+`GRUCell` as its six Dense (`ir`, `iz`, `in`, `hr`, `hz`, `hn`, biases on
+`ir`, `iz`, `in` and `hn` only), so the Dense rule maps it.
+
 Other leaves (biases, LORE's std-norm `*_alpha`/`*_bias`, the FocalNet
 and LISTER layerscale gammas, LISTER's `eos_emb`, `kv_pos_bias` and its
 navigator's [C, C] `weight` and 0-d `bias`) carry over as they are.

@@ -145,14 +145,22 @@ class SpottingDecodeServer:
     slots free up at once, so there is no batch-formation barrier.
 
     Requests are `(memory [S,C], mem_pos [S,C], mem_valid [S],
-    prompt_ids [P])`, the first three tensors on the model's device, all of
-    one shape: the first request's (S, P) is the server's, and a request of
-    another shape fails its own Future. `submit` returns a Future resolving
-    to the decoded token list (EOS excluded).
+    prompt_ids [P])`, the first three tensors on the model's device.
+    Pages of mixed sizes share the pool within two budgets: a memory
+    shorter than `mem_len` is zero-padded to it on the device, with
+    `mem_valid` 0 (a -1e9 attention bias, so the padding contributes
+    nothing), and a prompt may have up to `max_prompt_len` tokens (the KV
+    cache holds max_prompt_len + max_steps + 1 positions); a refill wave
+    takes requests of one prompt length. A budget left None latches from
+    the first request, and a request beyond a budget fails its own Future.
+    `submit` returns a Future resolving to the decoded token list (EOS
+    excluded).
     """
 
     def __init__(self, model, task: str, mask_fn: Callable, n_slots: int,
-                 max_steps: int, eos_id: Optional[int]):
+                 max_steps: int, eos_id: Optional[int],
+                 mem_len: Optional[int] = None,
+                 max_prompt_len: Optional[int] = None):
         """mask_fn(pos_vec [n_slots], logits [n_slots, V]) → the logits
         the argmax reads (each slot's allowed classes at its position)."""
         self.model = model
@@ -164,9 +172,8 @@ class SpottingDecodeServer:
         self.eos_id = eos_id
         self.pad_id = model.vocab_layout.padding_index
         self._mask_fn = mask_fn
-        # (S, P), latched from the first request; the KV cache holds
-        # P + max_steps + 1 positions
-        self._shape = None
+        self.mem_len = mem_len
+        self.max_prompt_len = max_prompt_len
         self._q: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()
         self._worker = threading.Thread(target=self._run, daemon=True)
@@ -274,24 +281,37 @@ class SpottingDecodeServer:
 
     # ---- worker ----
 
-    def _admit(self, req) -> bool:
-        """Whether a request has the server's (S, P), latched from the
-        first request; one that has not fails its own Future."""
-        shape = (req[0].shape[0], req[3].shape[0])
-        if self._shape is None:
-            self._shape = shape
-        if shape != self._shape:
-            req[4].set_exception(ValueError(
-                f"request (mem_len, prompt_len) {shape} is not the "
-                f"server's {self._shape}"))
-            return False
-        return True
+    def _prepare(self, req):
+        """The request padded to the (mem_len, ≤ max_prompt_len) budget,
+        latching each budget left None from the first request; None after
+        failing its Future when it exceeds one."""
+        memory, mem_pos, mem_valid, prompt_ids, fut = req
+        S, P = memory.shape[0], prompt_ids.shape[0]
+        if self.mem_len is None:
+            self.mem_len = S
+        if self.max_prompt_len is None:
+            self.max_prompt_len = P
+        if S > self.mem_len or P > self.max_prompt_len:
+            fut.set_exception(ValueError(
+                f"request (prompt_len={P}, mem_len={S}) exceeds the "
+                f"server budget (max_prompt_len={self.max_prompt_len}, "
+                f"mem_len={self.mem_len}) — construct the server with "
+                f"larger budgets"))
+            return None
+        if S < self.mem_len:
+            # zero rows with mem_valid 0, on the device (no sync)
+            def pad(a):
+                return torch.cat([a, a.new_zeros(
+                    (self.mem_len - S,) + tuple(a.shape[1:]))])
+            memory, mem_pos, mem_valid = (pad(memory), pad(mem_pos),
+                                          pad(mem_valid))
+        return memory, mem_pos, mem_valid, prompt_ids, fut
 
     def _insert_wave(self, wave, slots) -> None:
         """ONE batched prefill + ONE scatter insert for k co-queued
-        requests. The wave is always padded to `wave_size` rows by
-        repeating its last row and slot, so every prefill has one
-        shape."""
+        requests of one prompt length. The wave is always padded to
+        `wave_size` rows by repeating its last row and slot, so every
+        prefill of a prompt length has one shape."""
         k = len(wave)
         kp = self.wave_size
         rows = list(wave) + [wave[-1]] * (kp - k)
@@ -302,7 +322,7 @@ class SpottingDecodeServer:
         prompts = torch.from_numpy(np.stack(
             [r[3].astype(np.int32) for r in rows])).to(self.device)
         P = prompts.shape[1]
-        cache_len = P + self.max_steps + 1
+        cache_len = self.max_prompt_len + self.max_steps + 1
         last_logits, caches, mem_kvs, mem_bias = self._prefill(
             memory, mem_pos, mem_valid.float(), prompts, cache_len)
         if self._state is None:
@@ -318,7 +338,7 @@ class SpottingDecodeServer:
         Returns False when the stop sentinel was consumed."""
         block = (not any(self._slots) and not self._pending
                  and not self._backlog)
-        # drain the queue into the admitted backlog (bounded lookahead so
+        # drain the queue into the padded backlog (bounded lookahead so
         # a flood of requests can't starve the tick loop)
         while len(self._backlog) < 2 * self.n_slots:
             try:
@@ -328,14 +348,20 @@ class SpottingDecodeServer:
             block = False
             if req is None:
                 return False
-            if self._admit(req):
-                self._backlog.append(req)
-        # FIFO waves, each up to the free-slot count
+            prepared = self._prepare(req)
+            if prepared is not None:
+                self._backlog.append(prepared)
+        # FIFO waves: the longest prefix of the backlog with one prompt
+        # length, up to the free-slot count
         while None in self._slots and self._backlog:
             free = [i for i, s in enumerate(self._slots) if s is None]
-            k = min(len(free), self.wave_size, len(self._backlog))
-            wave = [self._backlog.popleft() for _ in range(k)]
-            self._insert_wave(wave, free[:k])
+            P = self._backlog[0][3].shape[0]
+            wave = []
+            cap = min(len(free), self.wave_size)
+            while (self._backlog and len(wave) < cap
+                   and self._backlog[0][3].shape[0] == P):
+                wave.append(self._backlog.popleft())
+            self._insert_wave(wave, free[:len(wave)])
         return True
 
     def _process(self, out_tok, was_finished, snapshot) -> None:
@@ -375,13 +401,6 @@ class SpottingDecodeServer:
     def _run(self) -> None:
         with torch.inference_mode():
             self._loop()
-
-    def _batch(self, items: List[np.ndarray]) -> np.ndarray:
-        """The items, zero-padded to [batch_size, *item_shape]."""
-        buf = np.zeros((self.batch_size, *self.item_shape), self.dtype)
-        for i, item in enumerate(items):
-            buf[i] = item
-        return buf
 
     def _loop(self) -> None:
         """Tick pipeline, depth 2: the host's read of tick t's tokens
@@ -436,12 +455,20 @@ class SpottingService:
     """
 
     def __init__(self, model, device: Union[str, torch.device, None] = None,
-                 n_slots: int = 8, encode_batch: int = 4):
+                 n_slots: int = 8, encode_batch: int = 4,
+                 mem_len: Optional[int] = None):
         """n_slots: the pt server's slots (the poly and rec servers have
-        4 × n_slots). encode_batch: pages submitted together share ONE
-        batched encoder forward; a page waits up to BATCH_WAIT_MS for
-        co-travelers. The service serves one page shape, the first
-        page's, as `infer_spotting` runs one; `submit` rejects another."""
+        4 × n_slots).
+
+        mem_len: the encoder-memory budget for mixed page sizes: a smaller
+        page's memory is padded into it (SpottingDecodeServer mem_len);
+        None latches the first page's.
+
+        encode_batch: pages submitted together share ONE batched encoder
+        forward; a page waits up to BATCH_WAIT_MS for co-travelers. That
+        batcher takes the first page's shape and `submit` rejects another,
+        so mixed page sizes take encode_batch=1: each page is then encoded
+        alone, at its own shape, on the submitting thread."""
         self.device = resolve_device(device)
         self.model = cast_matmul_weights(
             copy.deepcopy(model).to(self.device).eval(),
@@ -449,7 +476,7 @@ class SpottingService:
         self.model.requires_grad_(False)
         c = self.cfg = self.model.config
         v = self.vocab = c.vocab()
-        self._encode_batch = encode_batch
+        self._encode_batch = max(1, int(encode_batch))
         self._encode_batcher: Optional[ContinuousBatcher] = None
         self._encode_lock = threading.Lock()
 
@@ -475,12 +502,14 @@ class SpottingService:
                      & (ids != v.pt_eos_index) & (ids != v.poly_eos_index))
         m = self.model
         self.pt_server = SpottingDecodeServer(
-            m, "pt", pt_mask, n_slots, c.pt_seq_length, v.pt_eos_index)
+            m, "pt", pt_mask, n_slots, c.pt_seq_length, v.pt_eos_index,
+            mem_len=mem_len)
         self.poly_server = SpottingDecodeServer(
-            m, "poly", fixed_mask(coord), 4 * n_slots, c.poly_length, None)
+            m, "poly", fixed_mask(coord), 4 * n_slots, c.poly_length, None,
+            mem_len=mem_len)
         self.rec_server = SpottingDecodeServer(
             m, "rec", fixed_mask(rec_allow), 4 * n_slots, c.rec_length,
-            v.rec_eos_index)
+            v.rec_eos_index, mem_len=mem_len)
         self._started = False
 
     def start(self) -> "SpottingService":
@@ -504,11 +533,16 @@ class SpottingService:
 
     def _encode_page(self, image: np.ndarray) -> Future:
         """Future of (memory, mem_pos, mem_valid) for one page, on the
-        device, through the shared batched encoder, made for the first
-        page's shape. The page memory never leaves the device: the decode
-        servers prefill from it, and every per-instance request references
-        it."""
+        device: encoded alone when encode_batch is 1, else through the
+        shared batched encoder, made for the first page's shape. The page
+        memory never leaves the device: the decode servers prefill from
+        it, and every per-instance request references it."""
         image = np.asarray(image, np.float32)
+        if self._encode_batch == 1:
+            memory, mem_pos, mem_valid = self._encode(image[None])
+            fut: Future = Future()
+            fut.set_result((memory[0], mem_pos[0], mem_valid[0]))
+            return fut
         with self._encode_lock:
             if self._encode_batcher is None:
                 def run(batch):

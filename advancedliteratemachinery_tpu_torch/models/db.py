@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy)
+from advancedliteratemachinery_tpu_torch.core.registry import MODELS
 from advancedliteratemachinery_tpu_torch.models.layers import (
     BN_EPS, batch_norm, conv2d, init_params)
 from advancedliteratemachinery_tpu_torch.ops.contours import (
@@ -82,6 +83,7 @@ class DBConfig:
     head_dim: int = 64
 
 
+@MODELS.register("db_detector")
 class DBDetector(nn.Module):
     """Built on `device` (the GPU unless `device="cpu"`), with random weights
     from `seed`; load real weights with `engine.convert`."""

@@ -22,6 +22,7 @@ import torch.nn as nn
 
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy)
+from advancedliteratemachinery_tpu_torch.core.registry import MODELS
 from advancedliteratemachinery_tpu_torch.models.dla import (
     DLAConfig, DLASegConfig, DLASegV0)
 from advancedliteratemachinery_tpu_torch.ops.heatmap import (
@@ -50,6 +51,7 @@ class DocXLayoutConfig:
             ))
 
 
+@MODELS.register("docxlayout")
 class DocXLayout(nn.Module):
     """Built on `device` (the GPU unless `device="cpu"`) with random
     weights from `seed`; load real weights with

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy)
+from advancedliteratemachinery_tpu_torch.core.registry import CODECS, MODELS
 from advancedliteratemachinery_tpu_torch.models.abinet import (
     ABINetVision, ABINetVisionConfig, ConvBN)
 from advancedliteratemachinery_tpu_torch.models.layers import (
@@ -49,6 +50,7 @@ IMG_TOKENS = 96                  # 3 x 32 from an 8x32 map
 MASK_INS_CLASSES = 256
 
 
+@CODECS.register("levt_dict")
 class LevtDictionary:
     """fairseq-convention dictionary over a charset (levt/dictionary.py)."""
 
@@ -229,6 +231,7 @@ def first_argmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.argmax(x, dim=dim).to(torch.int32)
 
 
+@MODELS.register("levocr")
 class LevOCR(nn.Module):
     """The ABINet vision branch, the image-token convs and LevT. Built on
     `device` (the GPU unless `device="cpu"`) with random weights from

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy, gelu)
+from advancedliteratemachinery_tpu_torch.core.registry import MODELS
 from advancedliteratemachinery_tpu_torch.models.focalnet import (
     FOCALNET_VARIANTS, FocalNet, FocalNetBlock, FocalNetConfig)
 from advancedliteratemachinery_tpu_torch.models.layers import (
@@ -281,6 +282,7 @@ class NeighborDecoder(nn.Module):
         return res
 
 
+@MODELS.register("lister")
 class LISTER(nn.Module):
     """FocalNet encoder + NeighborDecoder. Built on `device` (the GPU
     unless `device="cpu"`) with random weights from `seed` (flax's
@@ -319,3 +321,10 @@ class LISTER(nn.Module):
         the refined one."""
         feat, fmask = self.encoder(images, mask)
         return self.decoder(feat, fmask)
+
+
+def lister_greedy_decode(logits: torch.Tensor, char_masks: torch.Tensor):
+    """Greedy ids per position (the first index of the maximum, as
+    `jnp.argmax`); EOS (0) pruning is host-side via the codec. Returns
+    (ids [B, L] int32, the masks as given)."""
+    return torch.argmax(logits, dim=-1).to(torch.int32), char_masks

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy)
+from advancedliteratemachinery_tpu_torch.core.registry import MODELS
 from advancedliteratemachinery_tpu_torch.models.dla import (
     DLASeg, DLASegConfig)
 from advancedliteratemachinery_tpu_torch.models.layers import (
@@ -173,6 +174,7 @@ class LoreProcessor(nn.Module):
         return out
 
 
+@MODELS.register("lore")
 class LORE(nn.Module):
     """DLASeg heads, then at inference the device decode and the Processor.
     Built on `device` (the GPU unless `device="cpu"`) with random weights

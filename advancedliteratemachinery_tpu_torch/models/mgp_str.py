@@ -20,6 +20,7 @@ import torch.nn as nn
 from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy)
+from advancedliteratemachinery_tpu_torch.core.registry import MODELS
 from advancedliteratemachinery_tpu_torch.models.layers import (
     LN_EPS, init_params, layer_norm, linear)
 from advancedliteratemachinery_tpu_torch.models.vit import (
@@ -115,6 +116,7 @@ class MGPSTRConfig:
         return {n: all_heads[n] for n in self.heads}
 
 
+@MODELS.register("mgp_str")
 class MGPSTR(nn.Module):
     """Built on `device` (the GPU unless `device="cpu"`), with random weights
     from `seed`; load real weights with `engine.convert`."""

@@ -41,6 +41,7 @@ from advancedliteratemachinery_tpu_torch.codecs.coords import CoordSeqVocab
 from advancedliteratemachinery_tpu_torch.core.device import resolve_device
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, Policy)
+from advancedliteratemachinery_tpu_torch.core.registry import MODELS
 from advancedliteratemachinery_tpu_torch.models.layers import (
     LN_EPS, init_params, layer_norm, linear)
 from advancedliteratemachinery_tpu_torch.models.swin import (
@@ -374,6 +375,7 @@ class TokenEmbedding(nn.Module):
         return emb, pe.to(emb.dtype)
 
 
+@MODELS.register("omniparser")
 class OmniParser(nn.Module):
     """Swin + FPN encoder, the token embedding and the three task decoders.
     Built on `device` (the GPU unless `device="cpu"`) with random weights

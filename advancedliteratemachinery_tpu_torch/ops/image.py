@@ -18,6 +18,10 @@ uint8 out:
   does: integer destination pixels mapped back in float64, bilinear taps
   in float32, a tap outside the page reads 0, rounded half up. Within
   one uint8 level of cv2 5.0;
+- `resize_bicubic_u8` is PIL's default `Image.resize(size)` on an RGB
+  page (BICUBIC, a = -0.5, widened by the downscale factor), in PIL's
+  own fixed point (22-bit weights, a uint8 clip between the horizontal
+  and the vertical pass): bit-equal to PIL 12;
 - `crop_quads_u8` chains them: every quad to its own size (the JAX
   pipeline's `crop_image`), then to the recognizer's crop shape, for all
   quads of a page in one batch (each warped into its own stretch of a
@@ -244,6 +248,83 @@ def resize_linear_u8(images_u8: torch.Tensor,
     B, H, W, _ = images_u8.shape
     sizes = torch.tensor([[W, H]], device=images_u8.device).expand(B, 2)
     return resize_crops_u8(images_u8, sizes, out_hw)
+
+
+# PIL's fixed point for 8-bit resampling (libImaging/Resample.c)
+PIL_PRECISION_BITS = 32 - 8 - 2
+
+
+def _pil_bicubic(x: np.ndarray) -> np.ndarray:
+    """Resample.c `bicubic_filter` (a = -0.5), term for term."""
+    x = np.abs(x)
+    a = -0.5
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
+    far = (((x - 5) * x + 8) * x - 4) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+def _pil_bicubic_taps(in_size: int, out_size: int):
+    """Resample.c `precompute_coeffs` for the BICUBIC filter (support 2)
+    over the whole axis, then `normalize_coeffs_8bpc`: (xmin [out] int64,
+    weights [out, ksize] int64 at 2^22, zero past each window). Float64
+    on the host, in the C code's order of operations."""
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(math.ceil(support)) * 2 + 1
+    center = (np.arange(out_size, dtype=np.float64) + 0.5) * scale
+    ss = 1.0 / filterscale
+    xmin = np.maximum(np.trunc(center - support + 0.5), 0).astype(np.int64)
+    xmax = np.minimum(np.trunc(center + support + 0.5),
+                      in_size).astype(np.int64) - xmin
+    x = np.arange(ksize)
+    w = _pil_bicubic(((x[None] + xmin[:, None]) - center[:, None] + 0.5)
+                     * ss)
+    w = np.where(x[None] < xmax[:, None], w, 0.0)
+    ww = np.cumsum(w, axis=1)[:, -1:]            # C's left-to-right sum
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    k = w * (1 << PIL_PRECISION_BITS)
+    k = np.trunc(np.where(w < 0, -0.5 + k, 0.5 + k)).astype(np.int64)
+    return xmin, k
+
+
+def _pil_pass(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
+    """One of Resample.c's 8bpc passes along `axis` of int32 [H, W, C]:
+    Σ pixel · weight + 2^21, shifted down 22 bits and clipped to uint8
+    (`clip8`), in int32 as PIL sums."""
+    in_size = x.shape[axis]
+    xmin, k = _pil_bicubic_taps(in_size, out_size)
+    idx = np.minimum(xmin[:, None] + np.arange(k.shape[1]), in_size - 1)
+    idx = torch.from_numpy(idx).to(x.device)
+    k = torch.from_numpy(k.astype(np.int32)).to(x.device)
+    shape = [1, 1, 1]
+    shape[axis] = out_size
+    acc = torch.full((), 1 << (PIL_PRECISION_BITS - 1), dtype=torch.int32,
+                     device=x.device)
+    for j in range(k.shape[1]):
+        acc = acc + (x.index_select(axis, idx[:, j])
+                     * k[:, j].reshape(shape))
+    return (acc >> PIL_PRECISION_BITS).clamp(0, 255)
+
+
+def resize_bicubic_u8(image_u8, out_hw: Tuple[int, int],
+                      device=None) -> torch.Tensor:
+    """uint8 [H, W, C] (a NumPy array or a tensor) → uint8 [h, w, C] on
+    `device` (default: the tensor's), `PIL.Image.fromarray(image)
+    .resize((w, h))` with its default BICUBIC filter: the horizontal pass,
+    then the vertical, each skipped when its axis keeps its size, as
+    PIL skips it. The taps are PIL's (`_pil_bicubic_taps`); the passes run
+    on the device in int32."""
+    if device is None:
+        device = (image_u8.device if isinstance(image_u8, torch.Tensor)
+                  else "cpu")
+    x = as_device_tensor(image_u8, device).to(torch.int32)
+    h, w = out_hw
+    if x.shape[1] != w:
+        x = _pil_pass(x, 1, w)
+    if x.shape[0] != h:
+        x = _pil_pass(x, 0, h)
+    return x.to(torch.uint8)
 
 
 def _quad_size(pts: np.ndarray) -> Tuple[int, int]:

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from advancedliteratemachinery_tpu_torch.core.device import resolve_device
+from advancedliteratemachinery_tpu_torch.core.registry import PIPELINE_MODULES
 from advancedliteratemachinery_tpu_torch.ops.image import (
     as_device_tensor, crop_quads_u8, perspective_maps, warp_perspective_u8)
 
@@ -54,6 +55,7 @@ def crop_image(image, position,
     return crop if isinstance(image, torch.Tensor) else crop.cpu().numpy()
 
 
+@PIPELINE_MODULES.register("text_detection")
 class TextDetection:
     """Wraps a detector: image → {'polygons': [N, 8], 'scores': [N]}.
 
@@ -69,6 +71,7 @@ class TextDetection:
                 "scores": np.asarray(scores, np.float32)}
 
 
+@PIPELINE_MODULES.register("text_recognition")
 class TextRecognition:
     """Crop each detected quad, batch-recognize on the device
     (text_recognition.py:35).
@@ -107,6 +110,7 @@ class TextRecognition:
         return {"texts": texts, "confidences": confs, "polygons": polys}
 
 
+@PIPELINE_MODULES.register("layout_analysis")
 class LayoutAnalysis:
     """Layout regions: image → {'layout_dets': [{'category_id', 'poly',
     'score'}]} (layout_analysis.py:49; DocXLayout main.py:85 output
@@ -136,6 +140,7 @@ class LayoutAnalysis:
         return {"layout_dets": dets}
 
 
+@PIPELINE_MODULES.register("table_structure_recognition")
 class TableStructureRecognition:
     """Table cells + logical coordinates: image → {'polygons': [N, 8],
     'logi_coords': [N, 4]} (table_structure_recognition.py; LORE output;

@@ -118,7 +118,19 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     teacher-forced logits against the CPU's own bf16 error; no port kernel
     may launch. The golden replay and the reference checkpoints take
     `omniparser.pth` and a full-width OmniParser file too;
-17. the document pipelines, the seventh path (`docxchain`): DocXLayout
+17. OmniParser's tasks (`omniparser_tasks`, after `omniparser`), the
+    default config in bf16 with readable weights: `infer_vie` on CORD's
+    categories at B=1 on the 8 pages (pages/s, p50/p99, the f32 model on
+    the card against the CPU on page 0); the CLI's `table-eval` on 8
+    seeded PNG tables labelled by their own decode (TEDS = S-TEDS = 1.0,
+    a control with one cell's text changed a table below 1; stages by
+    `StepTimer`) and `table-html` in a fresh process (cold start, equal
+    to its in-process decode); `SpottingService(encode_batch=1,
+    mem_len=...)` on 640², 480x640 and 512² pages at once (f32 equal to
+    `infer_spotting` a page, bf16 parting only within bf16's rounding; a
+    704x640 page refused); LISTER's baseline heads at B=256 on LISTER-B's
+    feature map; `models --cost mgp_str --variant base`;
+18. the document pipelines, the seventh path (`docxchain`): DocXLayout
     (`DocXLayoutConfig()`), LORE (`LoreConfig()` on 512² resizes), DB
     (`DBConfig()` at 640²) and MGP-STR-base in bf16 on 8 seeded 1024x768
     document pages and 8 table pages, the weights made readable (DB by
@@ -151,7 +163,7 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     1240x1754 page with one 1200x40 line and one 40x600 column among its
     words has its crops' peak card memory held under CROP_BYTES_PER_PIXEL
     bytes a pixel of the rectified crops;
-18. the evaluation surface (`evaluation`, after `docxchain`): six LMDB
+19. the evaluation surface (`evaluation`, after `docxchain`): six LMDB
     STR eval sets of the standard names and sizes (IIIT5k_3000, SVT,
     IC13_857, IC15_1811, SVTP, CUTE80: 7,248 crops of 16-96 x 32-384 px,
     two thirds seeded PNGs written with `zlib`, one third the committed
@@ -187,7 +199,8 @@ vocab kernel twice, every LORE forward the deformable conv kernel 16
 times and nothing else, every train step the attention kernel and its
 backward kernel 12 times each and nothing else, each document pipeline
 its recognizer's and (tables) LORE's kernels, and the f32 models, the
-golden replay, LISTER, LevOCR, OmniParser and DocXLayout nothing at all,
+golden replay, LISTER, LevOCR, OmniParser (its tasks too), LISTER's
+baseline heads and DocXLayout nothing at all,
 and the STR eval pass at batch 64 the recognizer's kernels for each of its
 117 forwards.
 Every time printed is this card's own, taken with CUDA events or, end to
@@ -198,6 +211,7 @@ The second-to-last line is one JSON object `{"kernels": [...]}`; the last is
 
 from __future__ import annotations
 
+import copy
 import ctypes
 import dataclasses
 import hashlib
@@ -2240,11 +2254,13 @@ def _capped(mask, cap):
     return fn
 
 
-def readable_omniparser(model, pages, points=OMNI_POINTS):
+def readable_omniparser(model, pages, points=OMNI_POINTS, period=2):
     """Make seeded random OmniParser weights decode `pages` [P, H, W, 3]
-    into something worth comparing. As drawn, the pt head's EOS never wins,
-    so a page's point sequence would run to pt_seq_length, and no word
-    ends. Raising an EOS class's bias by b ends a sequence at the first
+    into something worth comparing: with `period` 2, `infer_spotting`'s
+    (x, y) points; with 3, `infer_vie`'s (x, y, class) triplets, whose
+    class step reads the trailing category band. As drawn, the pt head's
+    EOS never wins, so a page's point sequence would run to
+    pt_seq_length, and no word ends. Raising an EOS class's bias by b ends a sequence at the first
     step whose margin of the best allowed class over EOS is below b, and
     changes nothing before it. But as drawn the pt decoder's self-attention
     is near uniform, each page's point sequence soon settles into a few
@@ -2257,10 +2273,11 @@ def readable_omniparser(model, pages, points=OMNI_POINTS):
     Every decode here runs on the shapes `infer_spotting` decodes (one page
     with a cache of pt_seq_length steps, cut at a step cap; then
     max_instances rows), whose products it repeats bit for bit. So:
-    1. pt: decode each page's points with EOS masked out for 2·points[1] +
-       2 steps, recording the margin at each even step (where EOS may
-       come). Each midpoint b between the pages' running minima predicts
-       every page's point count; the candidates whose counts all lie in
+    1. pt: decode each page's points with EOS masked out for
+       period·(points[1] + 1) steps, recording the margin at each step
+       where EOS may come (the first of each group). Each midpoint b
+       between the pages' running minima predicts every page's point
+       count; the candidates whose counts all lie in
        [points[0], points[1]] are tried in order (most distinct counts,
        then widest gap): with b added to the bias, each page is decoded
        for real, up to the cap, and the first b with which every page
@@ -2279,6 +2296,7 @@ def readable_omniparser(model, pages, points=OMNI_POINTS):
     ids = torch.arange(v.num_classes, device=dev)
     coord = ids < c.num_bins
     coord_or_eos = coord | (ids == v.pt_eos_index)
+    allow_at = (coord, coord, ids >= v.num_classes - c.vie_categories)
     rec_other = ((ids >= c.num_bins) & (ids < v.rec_eos_index)
                  & (ids != v.pt_eos_index) & (ids != v.poly_eos_index))
     prompt = torch.as_tensor(v.pt_prompt(c.use_char_window_prompt),
@@ -2313,14 +2331,14 @@ def readable_omniparser(model, pages, points=OMNI_POINTS):
             margins, chosen = [], []
 
             def record(i, logits):
-                if i % 2 == 0:
+                if i % period == 0:
                     margins.append(logits[0, :c.num_bins].amax()
                                    - logits[0, v.pt_eos_index])
-                masked = torch.where(coord[None], logits, NEG)
+                masked = torch.where(allow_at[i % period][None], logits, NEG)
                 chosen.append(torch.argmax(masked, dim=-1)[0])
                 return masked
 
-            pt_decode(mem, record, 2 * hi + 2)
+            pt_decode(mem, record, period * (hi + 1))
             mems.append(mem)
             toks.append(torch.stack(chosen).to(torch.int32))
             lows.append(torch.stack(margins).cummin(0).values.cpu())
@@ -2340,19 +2358,21 @@ def readable_omniparser(model, pages, points=OMNI_POINTS):
         candidates.sort(reverse=True)
         n_candidates = len(candidates)
         real_mask = lambda i, logits: torch.where(
-            (coord_or_eos if i % 2 == 0 else coord)[None], logits, NEG)
+            (coord_or_eos if i % period == 0 else allow_at[i % period])[None],
+            logits, NEG)
         tried, pt_lift = [], None
         for key, b in candidates[:6]:
             with torch.no_grad():
                 bias[v.pt_eos_index] += b
             n = []
             for mem in mems:
-                t = pt_decode(mem, real_mask, 2 * hi + 2 + EOS_CHECK_EVERY,
+                t = pt_decode(mem, real_mask,
+                              period * (hi + 1) + EOS_CHECK_EVERY,
                               v.pt_eos_index)
                 hit = (None if t is None
                        else (t == v.pt_eos_index).nonzero())
                 n.append(None if hit is None or not len(hit)
-                         else int(hit[0, 0]) // 2)
+                         else int(hit[0, 0]) // period)
             tried.append({"lift": b, "half_gap": key[1],
                           "predicted": n_points(b), "points": n})
             if (None not in n and lo <= min(n) and max(n) <= hi
@@ -2367,7 +2387,8 @@ def readable_omniparser(model, pages, points=OMNI_POINTS):
         for p, mem in enumerate(mems):
             pairs = torch.zeros((c.max_instances, 2), dtype=torch.int32,
                                 device=dev)
-            pairs[:n[p]] = toks[p][:2 * n[p]].reshape(n[p], 2)
+            pairs[:n[p]] = toks[p][:period * n[p]].reshape(n[p], period)[
+                :, :2]
             rec_prompt = torch.cat([pairs, torch.full(
                 (c.max_instances, 1), v.rec_sos_index, dtype=torch.int32,
                 device=dev)], 1)
@@ -2667,7 +2688,7 @@ def omniparser_phase():
             card32(page, {k: t.cuda() for k, t in seqs.items()}),
             model(page, {k: t.cuda() for k, t in seqs.items()})))
         got16 = {k: t.cpu() for k, t in model.infer_spotting(page).items()}
-    del cpu, cpu16, card32
+    del cpu, cpu16
     tok_keys = ("pt_tokens", "points", "instance_valid", "polygons",
                 "rec_tokens")
     rec_acc = {
@@ -2696,7 +2717,6 @@ def omniparser_phase():
     rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
     rec["seconds"] = time.perf_counter() - t_phase
     emit(rec)
-    del model
     torch.cuda.empty_cache()
     require(all(c == {} for c in rec["launches"]),
             f"OmniParser launched a port kernel: {rec['launches']}")
@@ -2738,6 +2758,539 @@ def omniparser_phase():
               if d["f32_gap"] > 2 * d["bf16_err"]]
     require(not beyond, f"the bf16 service parts from infer_spotting "
             f"beyond bf16 rounding: {beyond}")
+    return model, card32, pages
+
+
+
+# OmniParser's KIE and table tasks, mixed page sizes and LISTER's heads
+# (`omniparser_tasks`): the triplets a KIE page and the cells a table
+# stop within, with readable weights
+OMNI_TASK_INSTANCES = (4, 40)
+# the KIE model's seed: with CORD's categories, no EOS lift ends all 8
+# pages within OMNI_TASK_INSTANCES for seeds 0 and 2; seed 1 gives 4-9
+# triplets a page, seed 3 5-27 (probed on the H100)
+OMNI_VIE_SEED = 3
+TABLE_PAGES = 8
+TASK_SIZE = 640                     # the JAX CLI's default --image-size
+# page shapes served within one memory budget (the first one's), and one
+# past it
+MIXED_SHAPES = ((640, 640), (480, 640), (512, 512))
+MIXED_OVER = (704, 640)
+# LISTER's baseline heads on LISTER-B's feature map: the batch, and the
+# bf16 logits on the card against f32 on the CPU, relative RMS (one to
+# three bf16 Dense; the RNN runs in f32 on both)
+HEADS_BATCH = 256
+HEADS_RTOL = 3e-2
+HEADS_CPU_ROWS = 8
+
+
+def readable_task_keys(state):
+    """The tensors `readable_omniparser` changes: the pt decoder's
+    self-attention queries and the pt and rec heads' biases."""
+    return {k: t for k, t in state.items()
+            if (k.startswith("pt_decoder.") and ".sa_q." in k)
+            or k in ("pt_decoder.head3.bias", "rec_decoder.head3.bias")}
+
+
+class ReadableOmniCLI:
+    """Within the block, every OmniParser the port CLI builds (seeded as
+    the CLI seeds it) carries the readable tensors in `deltas`, by its
+    number of categories; the CLI's own code runs as it is."""
+
+    def __init__(self, deltas):
+        from advancedliteratemachinery_tpu_torch.models import omniparser
+        self.module, self.deltas = omniparser, deltas
+
+    def __enter__(self):
+        base, deltas = self.module.OmniParser, self.deltas
+        self.saved = base
+
+        class Readable(base):
+            def __init__(self, config=OmniParserConfig(), *a, **k):
+                super().__init__(config, *a, **k)
+                self.load_state_dict(deltas[config.vie_categories],
+                                     strict=False)
+
+        self.module.OmniParser = Readable
+        return self
+
+    def __exit__(self, *exc):
+        self.module.OmniParser = self.saved
+
+
+def readable_omni_cli_main(argv):
+    """`cli.main(argv[1:])` with the readable tensors of the file argv[0]
+    (a dict: number of categories → tensors) in the OmniParser the CLI
+    builds."""
+    from advancedliteratemachinery_tpu_torch import cli
+    with ReadableOmniCLI(torch.load(argv[0])):
+        return cli.main(argv[1:])
+
+
+def cli_json(argv, timer=None):
+    """The port CLI's command `argv` in this process → its JSON (a
+    non-zero exit fails the run); `table-eval` gets `timer`."""
+    import contextlib
+    import io
+    from advancedliteratemachinery_tpu_torch import cli
+    args = cli.parse_args(argv)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = (cli.cmd_table_eval(args, timer=timer)
+              if args.command == "table-eval" else cli.COMMANDS[
+                  args.command](args))
+    require(rc == 0, f"cli {argv[0]} exited {rc}")
+    out = buf.getvalue()
+    return json.loads(out) if out.lstrip().startswith(("{", "[")) else out
+
+
+def table_images(n, seed=23):
+    """n seeded uint8 table images of sizes around a page column: ruled
+    rows and columns, ink blocks, noise."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        h, w = int(rng.integers(240, 720)), int(rng.integers(320, 960))
+        img = np.full((h, w, 3), 235, np.int64)
+        rows = rng.choice(np.arange(4, h - 4), int(rng.integers(3, 12)),
+                          replace=False)
+        img[np.sort(rows)] = 20
+        cols = rng.choice(np.arange(4, w - 4), int(rng.integers(2, 8)),
+                          replace=False)
+        img[:, np.sort(cols)] = 20
+        for _ in range(int(rng.integers(10, 60))):
+            y, x = int(rng.integers(0, h - 8)), int(rng.integers(0, w - 20))
+            img[y:y + int(rng.integers(3, 8)),
+                x:x + int(rng.integers(5, 20))] = int(rng.integers(0, 120))
+        img += rng.integers(-20, 21, img.shape)
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def pubtabnet_record(name, cells, alter=None):
+    """A PubTabNet jsonl record whose ground-truth HTML
+    (`data/pubtabnet.py` `gt_table_html`) is `table_html` of decoded
+    `cells` and their texts: the rows split where a cell starts one, the
+    leading header rows in <thead>, spans as split `<td` attributes, empty
+    cells without a bbox. With `alter`, that cell's text gains a '#'."""
+    rows = []
+    for i, c in enumerate(cells):
+        if c["row_start"] or not rows:
+            rows.append([])
+        rows[-1].append(i)
+    n_head = 0
+    while n_head < len(rows) and cells[rows[n_head][0]]["header"]:
+        n_head += 1
+
+    def row_tokens(rs):
+        toks = []
+        for r in rs:
+            toks.append("<tr>")
+            for i in r:
+                attrs = [f' {k}="{cells[i][k]}"' for k in ("colspan",
+                                                            "rowspan")
+                         if cells[i][k] > 1]
+                toks += (["<td", *attrs, ">"] if attrs else ["<td>"])
+                toks.append("</td>")
+            toks.append("</tr>")
+        return toks
+
+    tokens = []
+    if n_head:
+        tokens += ["<thead>", *row_tokens(rows[:n_head]), "</thead>"]
+    if rows[n_head:]:
+        tokens += ["<tbody>", *row_tokens(rows[n_head:]), "</tbody>"]
+    gt = []
+    for i, c in enumerate(cells):
+        text = c["text"] + ("#" if i == alter else "")
+        if c["empty"] and i != alter:
+            gt.append({"tokens": []})
+        else:
+            x, y = c["center"] or (1.0, 1.0)
+            gt.append({"tokens": list(text),
+                       "bbox": [x - 1.0, y - 1.0, x + 1.0, y + 1.0]})
+    return {"filename": name, "split": "val",
+            "html": {"structure": {"tokens": tokens}, "cells": gt}}
+
+
+def teacher_forced_seqs(want, v):
+    """From a CPU decode: the pt prompt and sequence up to its EOS, and
+    instance 0's polygon and word after their prompts."""
+    hits = (want["pt_tokens"][0] == v.pt_eos_index).nonzero()
+    n = int(hits[0, 0]) + 1 if len(hits) else want["pt_tokens"].shape[1]
+    xy = want["points"][0, :1]
+    seqs = {"pt": torch.cat([torch.as_tensor(v.pt_prompt())[None],
+                             want["pt_tokens"][:, :n]], 1),
+            "poly": torch.cat([xy, torch.tensor([[v.poly_sos_index]]),
+                               want["polygons"][0, :1]], 1),
+            "rec": torch.cat([xy, torch.tensor([[v.rec_sos_index]]),
+                              want["rec_tokens"][0, :1]], 1)}
+    return {k: t.to(torch.int32) for k, t in seqs.items()}
+
+
+def vie_task(cfg, pages):
+    """KIE: OmniParser with CORD's categories, readable weights for
+    `infer_vie`'s triplets, timed at B=1 on the pages after a warm-up,
+    the f32 model on the card against the CPU on page 0."""
+    from advancedliteratemachinery_tpu_torch.codecs.coords import (
+        CORD_CLASSES)
+    from advancedliteratemachinery_tpu_torch.eval.spotting_eval import (
+        decode_vie_outputs)
+    vcfg = dataclasses.replace(cfg, vie_categories=len(CORD_CLASSES))
+    v = vcfg.vocab()
+    model = OmniParser(vcfg, seed=OMNI_VIE_SEED)
+    t0 = time.perf_counter()
+    readable, counts_readable = counted(lambda: readable_omniparser(
+        model, pages, OMNI_TASK_INSTANCES, period=3))
+    readable["seconds"] = time.perf_counter() - t0
+    state = {k: t.cpu() for k, t in model.state_dict().items()}
+    layers.cast_matmul_weights(model, torch.bfloat16)
+    model.requires_grad_(False)
+    with torch.inference_mode():
+        model.infer_vie(pages[:1])["rec_tokens"].cpu()          # warm up
+
+        def vie_all():
+            outs, lats = [], []
+            for i in range(len(pages)):
+                t0 = time.perf_counter()
+                outs.append({k: t.cpu() for k, t in
+                             model.infer_vie(pages[i:i + 1]).items()})
+                lats.append((time.perf_counter() - t0) * 1e3)
+            return outs, lats
+        (outs, lats), counts_vie = counted(vie_all)
+    entities = [decode_vie_outputs({k: t.numpy() for k, t in o.items()}, v,
+                                   CORD_CLASSES, (TASK_SIZE, TASK_SIZE))
+                for o in outs]
+    del model
+    cpu = OmniParser(vcfg, policy=FP32_POLICY, device="cpu")
+    cpu.load_state_dict(state)
+    card32 = copy.deepcopy(cpu).cuda()
+    with torch.inference_mode():
+        got, counts_f32 = counted(lambda: {
+            k: t.cpu() for k, t in card32.infer_vie(pages[:1]).items()})
+        t0 = time.perf_counter()
+        want = cpu.infer_vie(pages[:1].cpu())
+        cpu_s = time.perf_counter() - t0
+        seqs = teacher_forced_seqs(want, v)
+        tf_cpu = cpu(pages[:1].cpu(), seqs)
+        tf32 = card32(pages[:1], {k: t.cuda() for k, t in seqs.items()})
+    del card32, cpu
+    tok_keys = ("pt_tokens", "points", "instance_valid", "classes",
+                "polygons", "rec_tokens")
+    rec = {
+        "readable": readable,
+        "pages_per_s": 1e3 * len(lats) / sum(lats),
+        "p50_ms_b1": float(np.percentile(lats, 50)),
+        "p99_ms_b1": float(np.percentile(lats, 99)),
+        "pt_steps": [int((o["pt_tokens"][0] != v.padding_index).sum())
+                     for o in outs],
+        "instances": [int(o["instance_valid"].sum()) for o in outs],
+        "entities": [len(e) for e in entities],
+        "entity_first": entities[0][:2],
+        "f32_tokens_equal_to_cpu": {k: torch.equal(got[k], want[k])
+                                    for k in tok_keys},
+        "f32_probs_rel_rms_vs_cpu": {
+            k: rel_errors(got[k], want[k])[0]
+            for k in ("class_probs", "poly_probs", "rec_probs")},
+        "f32_tf_logits_rel_rms_vs_cpu": {
+            k: rel_errors(tf32[k].cpu(), tf_cpu[k])[0] for k in tf_cpu},
+        "cpu_f32_infer_vie_s": cpu_s,
+        "launches": [counts_readable, counts_vie, counts_f32]}
+    require(all(rec["f32_tokens_equal_to_cpu"].values())
+            and all(e <= OMNI_F32_RTOL for e in
+                    rec["f32_probs_rel_rms_vs_cpu"].values())
+            and all(e <= OMNI_F32_RTOL for e in
+                    rec["f32_tf_logits_rel_rms_vs_cpu"].values()),
+            f"infer_vie f32 on the card disagrees with the CPU: {rec}")
+    require(all(OMNI_TASK_INSTANCES[0] <= n <= OMNI_TASK_INSTANCES[1]
+                for n in rec["instances"]) and min(rec["entities"]) > 0,
+            f"infer_vie's pages decode nothing worth comparing: {rec}")
+    return rec
+
+
+def table_task(cfg, card, tmp):
+    """Tables: OmniParser with the 800-class table band, readable weights
+    for the 8 seeded PNG tables as `table-eval` resizes them; each
+    table's own decode (through the CLI's run_page) is its ground truth,
+    so `table-eval` must score TEDS = S-TEDS = 1.0, and a control set with
+    one cell's text changed a table below 1 (S-TEDS still 1); `table-html`
+    in a fresh process on table 0 (cold start) equal to its in-process
+    decode. The stages of `table-eval` by `StepTimer`."""
+    from advancedliteratemachinery_tpu_torch import cli
+    from advancedliteratemachinery_tpu_torch.data.pubtabnet import (
+        N_TABLE_CLASSES, decode_table_outputs)
+    from advancedliteratemachinery_tpu_torch.ops.image import (
+        resize_bicubic_u8)
+    from advancedliteratemachinery_tpu_torch.pipelines.file_loading import (
+        load_image)
+    from advancedliteratemachinery_tpu_torch.utils.profiling import (
+        StepTimer)
+    tcfg = dataclasses.replace(cfg, vie_categories=N_TABLE_CLASSES)
+    names = []
+    for i, img in enumerate(table_images(TABLE_PAGES)):
+        names.append(f"table{i}.png")
+        with open(os.path.join(tmp, names[-1]), "wb") as f:
+            f.write(png_bytes(img, PAGE_PNG_FILTERS))
+    images = [load_image(os.path.join(tmp, n)) for n in names]
+    pages = torch.stack([normalize_crops(resize_bicubic_u8(
+        im, (TASK_SIZE, TASK_SIZE), "cuda")[None], torch.float32)[0]
+        for im in images])
+    model = OmniParser(tcfg)                  # seeded as the CLI seeds it
+    t0 = time.perf_counter()
+    readable, counts_readable = counted(lambda: readable_omniparser(
+        model, pages, OMNI_TASK_INSTANCES, period=3))
+    readable["seconds"] = time.perf_counter() - t0
+    deltas = {N_TABLE_CLASSES: readable_task_keys(
+        {k: t.cpu() for k, t in model.state_dict().items()})}
+    del model
+    delta_path = os.path.join(tmp, "readable.pt")
+    torch.save(deltas, delta_path)
+    args = ["--variant", "base", "--image-size", str(TASK_SIZE)]
+    with ReadableOmniCLI(deltas):
+        (_, v, run_page), counts_build = counted(
+            lambda: cli._build_table_model(cli.parse_args(
+                ["table-html", names[0], *args])))
+        decoded = [decode_table_outputs(run_page(resize_bicubic_u8(
+            im, (TASK_SIZE, TASK_SIZE), "cuda")), v, im.shape[:2])
+            for im in images]
+        del run_page
+        recs = {"self": [], "control": []}
+        for name, d in zip(names, decoded):
+            cells = d["cells"]
+            alter = next((i for i, c in enumerate(cells) if not c["empty"]),
+                         0)
+            recs["self"].append(pubtabnet_record(name, cells))
+            recs["control"].append(pubtabnet_record(name, cells, alter))
+        scores, timers = {}, {}
+        for kind, rs in recs.items():
+            path = os.path.join(tmp, f"{kind}.jsonl")
+            with open(path, "w") as f:
+                f.write("".join(json.dumps(r) + "\n" for r in rs))
+            timers[kind] = StepTimer()
+            t0 = time.perf_counter()
+            scores[kind], counts = counted(lambda: cli_json(
+                ["table-eval", path, "--img-root", tmp, "--per-sample",
+                 *args], timer=timers[kind]))
+            scores[kind]["seconds"] = time.perf_counter() - t0
+            scores[kind]["launches"] = counts
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys, chip_smoke; sys.exit("
+         "chip_smoke.readable_omni_cli_main(sys.argv[1:]))", delta_path,
+         "table-html", os.path.join(tmp, names[0]), *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    cold_s = time.perf_counter() - t0
+    require(proc.returncode == 0, f"table-html exited {proc.returncode}: "
+            f"{proc.stderr[-2000:]}")
+    html = json.loads(proc.stdout)
+    want = json.loads(json.dumps(
+        {"image": os.path.join(tmp, names[0]), "html": decoded[0]["html"],
+         "structure_html": decoded[0]["structure_html"],
+         "cells": decoded[0]["cells"]}, default=float))
+    per_table = timers["self"].totals
+    loop_s = sum(per_table.values())
+    rec = {
+        "card": card, "readable": readable,
+        "tables": [list(im.shape[:2]) for im in images],
+        "cells": [len(d["cells"]) for d in decoded],
+        "empty_cells": [sum(c["empty"] for c in d["cells"])
+                        for d in decoded],
+        "rows": [sum(c["row_start"] for c in d["cells"]) for d in decoded],
+        "teds": scores["self"]["teds"], "s_teds": scores["self"]["s_teds"],
+        "control_teds": scores["control"]["teds"],
+        "control_s_teds": scores["control"]["s_teds"],
+        "control_per_table_teds": [s["teds"] for s in
+                                   scores["control"]["per_sample"]],
+        "tables_per_s": TABLE_PAGES / loop_s,
+        "stage_ms_per_table": {k: 1e3 * t / TABLE_PAGES
+                               for k, t in per_table.items()},
+        "table_eval_s": {k: s["seconds"] for k, s in scores.items()},
+        "table_html_cold_start_s": cold_s,
+        "table_html_equal_to_in_process": html == want,
+        "table_html_first": html["html"][:200],
+        "launches": [counts_readable, counts_build,
+                     scores["self"]["launches"],
+                     scores["control"]["launches"]]}
+    require(rec["teds"] == 1.0 and rec["s_teds"] == 1.0
+            and all(s["teds"] == 1.0 and s["s_teds"] == 1.0
+                    for s in scores["self"]["per_sample"]),
+            f"table-eval on the tables' own decodes is not 1.0: {scores}")
+    require(all(t < 1.0 for t in rec["control_per_table_teds"])
+            and rec["control_s_teds"] == 1.0,
+            f"table-eval's control set scores 1: {scores['control']}")
+    require(rec["table_html_equal_to_in_process"]
+            and html["html"].startswith("<table>") and html["cells"],
+            f"table-html in a fresh process: {proc.stdout[:2000]}")
+    require(rec["cells"] == readable["points"],
+            f"the CLI's tables are not the readable model's: {rec['cells']} "
+            f"cells, {readable['points']} chosen")
+    return rec
+
+
+def mixed_sizes_task(bf16, card32):
+    """`SpottingService(encode_batch=1, mem_len=<a 640² page's memory>)`
+    on seeded pages of MIXED_SHAPES submitted at once, for the bf16 and
+    the f32 model of the omniparser phase, each result against
+    `infer_spotting` on that page alone (f32 equal; bf16 where it parts
+    within `divergence_margin`'s rule); a page of MIXED_OVER fails with
+    the JAX message."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    pages = [torch.randn(h, w, 3, generator=gen, device="cuda")
+             for h, w in MIXED_SHAPES]
+    v = bf16.vocab_layout
+    with torch.inference_mode():
+        mem_len = int(bf16.encode(pages[0][None])[0].shape[1])
+        lens = [int(bf16.encode(p[None])[0].shape[1]) for p in pages]
+    pages_np = [p.cpu().numpy() for p in pages]
+    rec = {"shapes": [list(s) for s in MIXED_SHAPES], "mem_len": mem_len,
+           "mem_lens": lens, "launches": []}
+    served = {}
+    for name, model in (("bf16", bf16), ("f32", card32)):
+        svc = SpottingService(model, n_slots=8, encode_batch=1,
+                              mem_len=mem_len).start()
+        try:
+            svc(pages_np[:1], timeout=300)                      # warm up
+
+            def serve():
+                t0 = time.perf_counter()
+                futs = [svc.submit(p) for p in pages_np]
+                return ([f.result(timeout=300) for f in futs],
+                        time.perf_counter() - t0)
+            (served[name], seconds), counts = counted(serve)
+            over = svc.submit(np.zeros((*MIXED_OVER, 3), np.float32))
+            try:
+                over.result(timeout=300)
+                over_error = None
+            except ValueError as e:
+                over_error = str(e)
+        finally:
+            svc.stop()
+        rec[f"{name}_pages_per_s"] = len(pages) / seconds
+        rec[f"{name}_over_budget_error"] = over_error
+        rec["launches"].append(counts)
+    with torch.inference_mode():
+        alone, counts = counted(lambda: {name: [
+            {k: t.cpu() for k, t in m.infer_spotting(p[None]).items()}
+            for p in pages] for name, m in (("bf16", bf16),
+                                             ("f32", card32))})
+    rec["launches"].append(counts)
+    rec["points"] = [int(o["instance_valid"].sum()) for o in alone["bf16"]]
+    rec["f32_equal_pages"] = sum(
+        served_equal(r, spotting_summary(o, v))
+        for r, o in zip(served["f32"], alone["f32"]))
+    rec["bf16_equal_pages"] = sum(
+        served_equal(r, spotting_summary(o, v))
+        for r, o in zip(served["bf16"], alone["bf16"]))
+    divs = [divergence_margin(d, pages[i][None], bf16, card32)
+            for i, (r, o) in enumerate(zip(served["bf16"], alone["bf16"]))
+            for d in divergences(r, o, v)]
+    rec["bf16_divergences"] = {
+        "count": len(divs),
+        "largest_gap_over_err": max(
+            [d["f32_gap"] / d["bf16_err"] for d in divs], default=0.0)}
+    require(rec["f32_equal_pages"] == len(pages),
+            f"f32 service on mixed sizes parts from infer_spotting: {rec}")
+    require(all(d["f32_gap"] <= 2 * d["bf16_err"] for d in divs),
+            f"bf16 service on mixed sizes parts from infer_spotting beyond "
+            f"bf16 rounding: {divs}")
+    require(all(rec[f"{n}_over_budget_error"] is not None
+                and "exceeds the server budget"
+                in rec[f"{n}_over_budget_error"] for n in ("bf16", "f32")),
+            f"a page past the budget was served: {rec}")
+    require(len(set(lens)) == len(lens) and max(lens) == mem_len,
+            f"the mixed pages share a memory length: {lens}")
+    return rec
+
+
+def lister_heads_task():
+    """LISTER's CTC, parallel-attention and RNN-attention heads at
+    B=HEADS_BATCH on LISTER-B's feature map of seeded crops (bf16 from the
+    FocalNet-B encoder): ms a call (CUDA events), and each head's bf16
+    logits on the card against f32 on the CPU on the same features
+    (HEADS_CPU_ROWS crops; the RNN teacher-forced on the CPU's greedy
+    ids)."""
+    from advancedliteratemachinery_tpu_torch.models.lister_baselines import (
+        CTCDecoder, ParallelAttention, RNNAttention)
+    cfg = LISTERConfig()
+    enc = LISTER(cfg, seed=0).encoder
+    images = np.random.default_rng(31).integers(
+        0, 256, (HEADS_BATCH, 32, 128, 3), dtype=np.uint8)
+    x = normalize_crops(torch.from_numpy(images).cuda())
+    with torch.inference_mode():
+        feat, fmask = enc(x, torch.ones(x.shape[:3], device="cuda",
+                                        dtype=x.dtype))
+    del enc
+    B, h, w, C = feat.shape
+    rec = {"feature_map": [B, h, w, C], "num_classes": cfg.num_classes,
+           "ms": {}, "rel_rms_vs_cpu_f32": {}, "launches": []}
+    for name, cls in (("ctc", CTCDecoder), ("pat", ParallelAttention),
+                      ("rnn", RNNAttention)):
+        head = cls(cfg.num_classes, C, seed=0)
+        ref = cls(cfg.num_classes, C, policy=FP32_POLICY, device="cpu")
+        ref.load_state_dict(head.state_dict())
+        with torch.inference_mode():
+            ms, counts = counted(lambda: cuda_ms(lambda: head(feat, fmask)))
+            got = head(feat, fmask)["logits"][:HEADS_CPU_ROWS].cpu()
+            f32 = feat[:HEADS_CPU_ROWS].float().cpu()
+            m32 = fmask[:HEADS_CPU_ROWS].float().cpu()
+            want = ref(f32, m32)["logits"]
+            if name == "rnn":            # the card's greedy ids, forced
+                got = head(feat[:HEADS_CPU_ROWS], fmask[:HEADS_CPU_ROWS],
+                           want.argmax(-1).cuda())["logits"].cpu()
+        rec["ms"][name] = ms
+        rec["rel_rms_vs_cpu_f32"][name] = rel_errors(got, want)[0]
+        rec["launches"].append(counts)
+        del head, ref
+    require(all(e <= HEADS_RTOL for e in rec["rel_rms_vs_cpu_f32"].values()),
+            f"LISTER heads on the card disagree with the CPU: {rec}")
+    return rec
+
+
+def omniparser_tasks_phase(card, spot_bf16, spot_f32, pages):
+    """OmniParser's KIE and table tasks on the card (`vie_task`,
+    `table_task` through the CLI's `table-eval` and `table-html`), the
+    `SpottingService` on mixed page sizes (`mixed_sizes_task`, on the
+    omniparser phase's readable bf16 and f32 models), LISTER's baseline
+    heads (`lister_heads_task`) and `models --cost mgp_str --variant base`,
+    all with the JAX default OmniParserConfig() (Swin-B, 640²) in bf16.
+    None reaches a Pallas kernel, so none may launch a port kernel."""
+    t_phase = time.perf_counter()
+    cfg = OmniParserConfig()
+    rec = {"phase": "omniparser_tasks", "card": card,
+           "config": "OmniParserConfig(): Swin-B, 640² pages"}
+    t0 = time.perf_counter()
+    rec["vie"] = vie_task(cfg, pages)
+    rec["vie"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rec["tables"] = table_task(cfg, card, tmp)
+    rec["tables"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["mixed_sizes"] = mixed_sizes_task(spot_bf16, spot_f32)
+    rec["mixed_sizes"]["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec["lister_heads"] = lister_heads_task()
+    rec["lister_heads"]["seconds"] = time.perf_counter() - t0
+    cost, counts = counted(lambda: cli_json(
+        ["models", "--cost", "mgp_str", "--variant", "base"]))
+    rec["models_cost"] = cost.splitlines()[-1]
+    rec["models_cost_launches"] = counts
+    rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["seconds"] = time.perf_counter() - t_phase
+    emit(rec)
+    torch.cuda.empty_cache()
+    launches = (rec["vie"]["launches"] + rec["tables"]["launches"]
+                + rec["mixed_sizes"]["launches"]
+                + rec["lister_heads"]["launches"] + [counts])
+    require(all(c == {} for c in launches),
+            f"OmniParser's tasks or LISTER's heads launched a port kernel: "
+            f"{launches}")
+    require(rec["models_cost"].startswith("cost[mgp_str-base]: params="),
+            f"models --cost: {cost}")
 
 
 class PlainAttention(torch.autograd.Function):
@@ -4719,8 +5272,11 @@ def main() -> int:
     mark("lister")
     levocr_phase()
     mark("levocr")
-    omniparser_phase()
+    spot_bf16, spot_f32, omni_pages = omniparser_phase()
     mark("omniparser")
+    omniparser_tasks_phase(smi, spot_bf16, spot_f32, omni_pages)
+    del spot_bf16, spot_f32, omni_pages
+    mark("omniparser_tasks")
     table_pipe = docxchain_phase(smi)
     mark("docxchain")
     evaluation_phase(smi, table_pipe)

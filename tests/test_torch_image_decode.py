@@ -11,7 +11,11 @@ jpeg.py`) against PIL's `Image.open(...).convert("RGB")`, which the JAX
   and odd sizes: equal to PIL bit for bit (the stated bound, JPEG_LEVELS,
   is 0); progressive, CMYK and 12-bit files raise a `ValueError` naming
   the variant; the committed smoke pages decode to their recorded
-  hashes."""
+  hashes;
+- `ops/image.py` `resize_bicubic_u8` against PIL's default
+  `Image.resize(size)` (BICUBIC) on seeded RGB pages: downscales,
+  upscales, odd sizes and one axis unchanged, bit-equal, where a float
+  bicubic with antialias parts from PIL by a level on many pixels."""
 
 import hashlib
 import io
@@ -22,8 +26,11 @@ import zlib
 
 import numpy as np
 import pytest
+import torch
+import torch.nn.functional as F
 from PIL import Image
 
+from advancedliteratemachinery_tpu_torch.ops.image import resize_bicubic_u8
 from advancedliteratemachinery_tpu_torch.pipelines import (
     file_loading as tload, jpeg as tjpeg)
 
@@ -255,3 +262,47 @@ def test_committed_smoke_jpegs_decode_to_their_hashes():
         assert hashlib.sha256(pil.tobytes()).hexdigest() == want["sha256"]
         assert list(pil.shape) == want["shape"]
         np.testing.assert_array_equal(tjpeg.decode_jpeg(data), pil)
+
+
+def seeded_page(h, w, seed):
+    """Noise over a smooth ramp: every level, and edges of every size."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    ramp = np.stack([yy * 255 // max(h - 1, 1), xx * 255 // max(w - 1, 1),
+                     (xx + 2 * yy) % 256], -1)
+    noise = rng.integers(-60, 61, (h, w, 3))
+    return np.clip(ramp + noise * (rng.random((h, 1, 1)) < 0.5), 0,
+                   255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("src,dst", [
+    ((100, 76), (64, 64)),        # downscale both axes
+    ((1210, 901), (640, 640)),    # a large page, factors 1.9 and 1.4
+    ((37, 53), (640, 640)),       # upscale ~17x
+    ((301, 299), (150, 641)),     # down one axis, up the other
+    ((480, 640), (640, 640)),     # width unchanged: one pass
+    ((64, 64), (64, 31)),         # height unchanged, odd width
+    ((5, 7), (3, 2)),
+])
+def test_bicubic_resize_bit_equal_to_pil(src, dst):
+    page = seeded_page(*src, seed=sum(src))
+    want = np.asarray(Image.fromarray(page).resize(dst[::-1]))
+    got = resize_bicubic_u8(page, dst)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (*dst, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+    on_tensor = resize_bicubic_u8(torch.from_numpy(page), dst)
+    np.testing.assert_array_equal(on_tensor.numpy(), want)
+
+
+def test_float_bicubic_is_not_pil():
+    """The trap the fixed-point passes avoid: torch's float bicubic with
+    antialias, rounded, leaves PIL's result by a level on many pixels."""
+    page = seeded_page(1210, 901, seed=2111)
+    want = np.asarray(Image.fromarray(page).resize((640, 640)))
+    x = torch.from_numpy(page).permute(2, 0, 1)[None].float()
+    flt = F.interpolate(x, (640, 640), mode="bicubic", antialias=True,
+                        align_corners=False)
+    flt = flt[0].permute(1, 2, 0).round().clamp(0, 255).numpy()
+    assert (flt != want).mean() > 0.01
+    np.testing.assert_array_equal(
+        resize_bicubic_u8(page, (640, 640)).numpy(), want)

@@ -4,7 +4,8 @@ has none of them), and importing it builds no kernel: every module of
 `advancedliteratemachinery_tpu_torch` and the module-level code of
 `chip_smoke.py` and the root's measuring scripts (`k4_repeats.py`,
 `kernel_ab.py`, `collect_profile.py`) import in a process where all of
-them are blocked, and the CLI's evaluation commands parse there."""
+them are blocked, the CLI's evaluation and OmniParser task commands parse
+there, and `models` lists the registries there."""
 
 import pathlib
 import subprocess
@@ -33,7 +34,9 @@ def test_port_imports_without_jax():
               "data.lmdb_writer", "data.str_dataset", "eval.str_metrics",
               "eval.str_eval", "eval.ocr_metrics", "eval.tree_edit",
               "eval.teds", "eval.kie_metrics", "eval.ccocr_harness",
-              "eval.det_map", "eval.lore_metrics", "ops.nms"):
+              "eval.det_map", "eval.lore_metrics", "ops.nms", "ops.image",
+              "data.pubtabnet", "models.lister_baselines",
+              "utils.profiling", "core.registry", "codecs.seq_codec"):
         assert f"{PKG}.{m}" in modules
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -45,7 +48,8 @@ def test_port_imports_without_jax():
             importlib.import_module(m)
         from {PKG} import cli
         for cmd in ("eval", "create-lmdb", "ccocr-eval", "ccocr-collect",
-                    "eval-det"):
+                    "eval-det", "models", "vie", "table-html",
+                    "table-eval"):
             try:
                 cli.main([cmd, "--help"])
             except SystemExit as e:
@@ -55,6 +59,7 @@ def test_port_imports_without_jax():
         assert abs(teds.TEDS().evaluate("<table><tr><td>a</table>",
                                         "<table><tr><td>b</table>")
                    - 2 / 3) < 1e-12
+        assert cli.main(["models"]) == 0     # imports every registrant
         import chip_smoke, collect_profile, k4_repeats, kernel_ab
         from {PKG}.ops import _kernels
         assert not _kernels._LIBS and not _kernels._FUNCS

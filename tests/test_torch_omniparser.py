@@ -12,7 +12,12 @@ resizes off a ratio of 2, a shifted window block on the padded 28x20 map
 of stage 0 and one in stage 3 whose shift is turned off (one window covers
 it). The JAX side is one jitted run in a module fixture. The importer is held to the JAX importer +
 engine/convert on the torch mirror of tests/test_omniparser_import.py, and
-the golden tests/golden/omniparser.pth is replayed through the port."""
+the golden tests/golden/omniparser.pth is replayed through the port. The
+`vie`, `table-html` and `table-eval` commands of both CLIs run on the same
+seeded PNG files (a 90 x 70 page resized to 64², PubTabNet records of
+test_torch_pubtabnet.py) with this model and its carried weights
+(`decode_table_class` reads any index of the band, so the 3 categories
+serve the table commands): the same JSON, floats within 1e-5."""
 
 import dataclasses
 import os
@@ -519,3 +524,138 @@ def test_golden_omniparser_replays():
     for k in ("pt", "poly", "rec"):
         np.testing.assert_allclose(got[k].numpy(), data[f"out_{k}"],
                                    rtol=rtol, atol=atol, err_msg=k)
+
+
+# ---------------- the vie, table-html and table-eval commands ----------------
+
+
+CLI_SIZE = 64
+
+
+@pytest.fixture(scope="module")
+def cli_pages(tmp_path_factory):
+    """A seeded 90 x 70 PNG page and a PubTabNet jsonl of 3 seeded
+    records over PNG tables of odd sizes."""
+    import json
+    from PIL import Image
+
+    from test_torch_pubtabnet import seeded_record
+
+    root = tmp_path_factory.mktemp("cli")
+    rng = np.random.default_rng(9)
+    Image.fromarray(rng.integers(0, 256, (90, 70, 3), np.uint8)).save(
+        root / "page.png")
+    recs = []
+    for i in range(3):
+        name = f"t{i}.png"
+        Image.fromarray(rng.integers(0, 256, (41 + 13 * i, 97 - 11 * i, 3),
+                                     np.uint8)).save(root / name)
+        recs.append(seeded_record(20 + i, name))
+    (root / "gt.jsonl").write_text(
+        "".join(json.dumps(r) + "\n" for r in recs))
+    return root
+
+
+@pytest.fixture(scope="module")
+def jax_infer(jax_run):
+    """This file's JAX model, its carried weights and its `infer_vie` on a
+    float page, jitted once for the module: the JAX CLI's table builder
+    and `vie` command both run it."""
+    jm = jomni.OmniParser(configs()[0], policy=J_FP32)
+    infer = jax.jit(lambda vv, x: jm.apply(vv, x, method=jm.infer_vie),
+                    compiler_options=FAST_COMPILE)
+    return jm, {"params": jax_run["params"]}, infer
+
+
+def both_clis(monkeypatch, capsys, port, jax_infer, argv, rc=0):
+    """Run `argv` through the JAX CLI and the port's (`--device cpu`), each
+    building this file's model with its weights, each to exit code `rc`;
+    → (JAX JSON, port JSON). The JAX CLI's table builder and `vie`'s
+    model run `jax_infer`'s jitted function (for `vie`, `jax.jit` is the
+    identity, so that its one compiled graph serves both)."""
+    import json
+
+    from advancedliteratemachinery_tpu import cli as jcli
+    from advancedliteratemachinery_tpu.ops.image import normalize_crops
+    from advancedliteratemachinery_tpu_torch import cli as tcli
+
+    jm, variables, infer = jax_infer
+    jcfg = configs()[0]
+
+    def run_page(page_u8):
+        x = normalize_crops(jnp.asarray(page_u8[None]), dtype=jnp.float32)
+        return {k: np.asarray(val) for k, val in infer(variables, x).items()}
+
+    class Carried:
+        """The JAX `vie` command's `OmniParser(cfg)`: this file's model,
+        whose init gives the carried weights."""
+
+        def __init__(self, cfg):
+            self.infer_vie = jm.infer_vie
+
+        def init(self, *_):
+            return variables
+
+        def apply(self, vv, x, method):
+            return infer(vv, x)
+
+    monkeypatch.setattr(jomni, "OmniParser", Carried)
+    monkeypatch.setattr(jomni, "OmniParserConfig", lambda **kw: jcfg)
+    monkeypatch.setattr(jax, "jit", lambda fn, **kw: fn)
+    monkeypatch.setattr(jcli, "_build_table_model", lambda args: (
+        jm, jcfg.vocab(), variables, run_page))
+    monkeypatch.setattr(tcli, "_omniparser", lambda args, n: port)
+    outs = []
+    for main, extra in ((jcli.main, []), (tcli.main, ["--device", "cpu"])):
+        capsys.readouterr()
+        assert main(argv + extra) == rc
+        outs.append(json.loads(capsys.readouterr().out))
+    monkeypatch.undo()
+    return outs
+
+
+def assert_json_close(got, want, path=""):
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys(), path
+        for k in want:
+            assert_json_close(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, list):
+        assert isinstance(got, list) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_json_close(g, w, f"{path}[{i}]")
+    elif isinstance(want, float):
+        assert got == pytest.approx(want, rel=1e-5, abs=1e-5), path
+    else:
+        assert got == want, path
+
+
+def test_cli_vie_matches_jax(monkeypatch, capsys, port, jax_infer,
+                             cli_pages):
+    page = str(cli_pages / "page.png")
+    want, got = both_clis(monkeypatch, capsys, port, jax_infer,
+                          ["vie", page, "--image-size", str(CLI_SIZE)])
+    assert_json_close(got, want)
+    assert got["image"] == page and len(got["entities"]) >= 1
+
+
+def test_cli_table_html_matches_jax(monkeypatch, capsys, port,
+                                    jax_infer, cli_pages):
+    argv = ["table-html", str(cli_pages / "t1.png"), "--image-size",
+            str(CLI_SIZE)]
+    want, got = both_clis(monkeypatch, capsys, port, jax_infer,
+                          argv)
+    assert_json_close(got, want)
+    assert got["html"].startswith("<table>") and got["cells"]
+
+
+def test_cli_table_eval_matches_jax(monkeypatch, capsys, port,
+                                    jax_infer, cli_pages):
+    argv = ["table-eval", str(cli_pages / "gt.jsonl"), "--img-root",
+            str(cli_pages), "--per-sample", "--image-size", str(CLI_SIZE)]
+    want, got = both_clis(monkeypatch, capsys, port, jax_infer,
+                          argv)
+    assert_json_close(got, want)
+    assert got["samples"] == 3 and 0 < got["s_teds"] <= 1
+    want, got = both_clis(monkeypatch, capsys, port, jax_infer,
+                          argv + ["--split", "none"], rc=1)
+    assert got == want and got["error"] == "no samples matched"

@@ -1,12 +1,15 @@
 """The port's serving (engine/serving.py) on the CPU: `ContinuousBatcher`
-(coalescing, padding, errors, bad shapes, concurrent producers) and
-`SpottingService` against the port's own `OmniParser.infer_spotting`, page
-by page, for 3 pages submitted together: the same points, polygons and
-words up to EOS. The model is tiny (Swin embed 8, decoder d 32, 2 layers)
-with its seeded weights made readable by chip_smoke's
-`readable_omniparser`, so that the pages emit different numbers of points
-and some words end by EOS. Every wait on a thread or a Future has a
-timeout of its own."""
+(coalescing, padding, errors, bad shapes, concurrent producers),
+`SpottingDecodeServer` with mixed-size budgets against the JAX server on
+the same weights and requests (memories of 3 to 6 rows padded to 6,
+prompts of 1 to 3 tokens), and `SpottingService` against the port's own
+`OmniParser.infer_spotting`, page by page, for 3 pages submitted together
+and for pages of two sizes served within one memory budget: the same
+points, polygons and words up to EOS. The model is tiny (Swin embed 8,
+decoder d 32, 2 layers) with its seeded weights made readable by
+chip_smoke's `readable_omniparser`, so that the pages emit different
+numbers of points and some words end by EOS. Every wait on a thread or a
+Future has a timeout of its own."""
 
 import threading
 import time
@@ -16,10 +19,17 @@ import pytest
 import torch
 
 import chip_smoke
+from advancedliteratemachinery_tpu.core.precision import FP32_POLICY as J_FP32
+from advancedliteratemachinery_tpu.engine import serving as jserving
+from advancedliteratemachinery_tpu.models import omniparser as jomni
+from advancedliteratemachinery_tpu.models import swin as jswin
 from advancedliteratemachinery_tpu_torch.core.precision import FP32_POLICY
+from advancedliteratemachinery_tpu_torch.engine.convert import (
+    load_flax_params)
 from advancedliteratemachinery_tpu_torch.engine.serving import (
-    ContinuousBatcher, SpottingService)
+    ContinuousBatcher, SpottingDecodeServer, SpottingService)
 from advancedliteratemachinery_tpu_torch.models import omniparser, swin
+from test_torch_omniparser import flax_shapes, random_params
 
 torch.set_num_threads(2)
 
@@ -195,12 +205,15 @@ def test_service_needs_a_card_unless_told_cpu(spotted, monkeypatch):
 
 
 def test_service_serves_one_page_shape(spotted):
-    """The service serves the first page's shape: a page of another shape
-    is refused at submit, and a decode server's request of another (mem,
-    prompt) shape fails its own Future while the others are served."""
+    """With a batched encoder (encode_batch > 1) the service serves the
+    first page's shape: a page of another shape is refused at submit, as
+    the JAX ContinuousBatcher refuses it. A decode server's memory budget
+    latches from its first request: a shorter memory is padded and decodes
+    as it does alone, and a longer one fails its own Future while the
+    others are served."""
     model, pages, _, want = spotted
     svc = SpottingService(model, device="cpu", n_slots=2,
-                          encode_batch=1).start()
+                          encode_batch=2).start()
     try:
         first = svc.submit(pages[0].numpy())
         with pytest.raises(ValueError, match="shape"):
@@ -211,15 +224,127 @@ def test_service_serves_one_page_shape(spotted):
         prompt = np.asarray(
             svc.vocab.pt_prompt(svc.cfg.use_char_window_prompt), np.int32)
         srv = svc.pt_server
+        assert srv.mem_len == memory.shape[1]
         short = srv.submit(memory[0, :4], mem_pos[0, :4], mem_valid[0, :4],
                            prompt)
-        with pytest.raises(ValueError, match="server's"):
-            short.result(timeout=WAIT_S)
+        twice = [torch.cat([a[0], a[0]]) for a in (memory, mem_pos,
+                                                    mem_valid)]
+        long = srv.submit(*twice, prompt)
+        with pytest.raises(ValueError, match="exceeds the server budget"):
+            long.result(timeout=WAIT_S)
         again = srv.submit(memory[0], mem_pos[0], mem_valid[0], prompt)
         assert again.result(timeout=WAIT_S) == [
             t for xy in want[0]["points"] for t in xy]
+        v, c = svc.vocab, svc.cfg
+        ids = torch.arange(v.num_classes)
+        coord = ids < c.num_bins
+        with torch.no_grad():
+            toks, _, fin = svc.model._decode_pt(
+                memory[:, :4], mem_pos[:, :4], mem_valid[:, :4], 2,
+                (coord | (ids == v.pt_eos_index), coord))
+        alone = [int(t) for t, f in zip(toks[0], fin[0])
+                 if not f and t != v.pt_eos_index]
+        assert short.result(timeout=WAIT_S) == alone
     finally:
         svc.stop()
+
+
+def test_service_serves_mixed_page_sizes(spotted):
+    """encode_batch=1 and the larger page's memory length as mem_len:
+    pages of two sizes, submitted at once, each get infer_spotting's
+    result on that page alone; a page larger than the budget fails its
+    own Future."""
+    model, pages, _, want = spotted
+    small = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (48, 48, 3)).astype(np.float32))
+    with torch.no_grad():
+        mem_len = model.encode(pages[:1])[0].shape[1]
+        assert model.encode(small[None])[0].shape[1] < mem_len
+        want_small = chip_smoke.spotting_summary(
+            model.infer_spotting(small[None]), CFG.vocab())
+    svc = SpottingService(model, device="cpu", n_slots=2, encode_batch=1,
+                          mem_len=mem_len).start()
+    try:
+        mixed = [pages[0], small, pages[1]]
+        futs = [svc.submit(p.numpy()) for p in mixed]
+        got = [f.result(timeout=WAIT_S) for f in futs]
+        big = svc.submit(np.zeros((96, 48, 3), np.float32))
+        with pytest.raises(ValueError, match="exceeds the server budget"):
+            big.result(timeout=WAIT_S)
+    finally:
+        svc.stop()
+    for g, w in zip(got, [want[0], want_small, want[1]]):
+        assert chip_smoke.served_equal(g, w)
+
+
+# ---------------- the decode server's budgets against JAX ----------------
+
+DEC_KW = dict(d_model=32, nhead=2, dim_feedforward=64, dec_layers=2,
+              max_position_embeddings=64)
+TINY_SWIN = dict(embed_dim=8, depths=(1, 1, 1, 1), num_heads=(1, 2, 2, 2),
+                 window_size=4)
+EOS = 1
+
+
+@pytest.fixture(scope="module")
+def decoders():
+    """One seeded flax tree in the JAX OmniParser (test_decode_server.py's
+    decoder widths and vocabulary) and in the port's."""
+    port = omniparser.OmniParser(
+        omniparser.OmniParserConfig(swin=swin.SwinConfig(**TINY_SWIN),
+                                    **DEC_KW),
+        policy=FP32_POLICY, device="cpu")
+    params = random_params(flax_shapes(port), seed=3)
+    jm = jomni.OmniParser(jomni.OmniParserConfig(
+        swin=jswin.SwinConfig(drop_path_rate=0.0, **TINY_SWIN),
+        drop_path_rate=0.0, **DEC_KW), policy=J_FP32)
+    return jm, params, load_flax_params(port, params)
+
+
+def make_sized(seed, s, plen, nc):
+    """test_decode_server.py's mixed-shape request."""
+    r = np.random.default_rng(seed)
+    memory = r.standard_normal((s, DEC_KW["d_model"])).astype(np.float32)
+    mem_pos = r.standard_normal((s, DEC_KW["d_model"])).astype(np.float32)
+    mem_valid = np.ones((s,), np.float32)
+    prompt = r.integers(2, nc, (plen,)).astype(np.int32)
+    return memory, mem_pos, mem_valid, prompt
+
+
+def test_decode_server_budgets_match_jax(decoders):
+    """test_decode_server.py's four requests of (mem_len, prompt_len)
+    (6, 3), (4, 3), (6, 2) and (3, 1) through both servers with mem_len=6,
+    max_prompt_len=3 and 2 slots: the same tokens; a memory of 9 rows
+    fails with the JAX message."""
+    jm, params, port = decoders
+    nc = port.vocab_layout.num_classes
+    pad = port.vocab_layout.padding_index
+    max_steps = 8
+    reqs = [make_sized(11, 6, 3, nc), make_sized(12, 4, 3, nc),
+            make_sized(13, 6, 2, nc), make_sized(14, 3, 1, nc)]
+    over = make_sized(15, 9, 3, nc)
+
+    def serve(srv, wrap):
+        srv.start()
+        try:
+            futs = [srv.submit(*wrap(r)) for r in reqs]
+            out = [f.result(timeout=WAIT_S) for f in futs]
+            with pytest.raises(ValueError,
+                               match="exceeds the server budget"):
+                srv.submit(*wrap(over)).result(timeout=WAIT_S)
+        finally:
+            srv.stop()
+        return out
+
+    want = serve(jserving.SpottingDecodeServer(
+        jm, params, task="rec", n_slots=2, max_steps=max_steps, eos_id=EOS,
+        pad_id=pad, mem_len=6, max_prompt_len=3), lambda r: r)
+    got = serve(SpottingDecodeServer(
+        port, "rec", lambda pos, logits: logits, 2, max_steps, EOS,
+        mem_len=6, max_prompt_len=3),
+        lambda r: (*map(torch.from_numpy, r[:3]), r[3]))
+    assert got == want
+    assert any(len(w) > 0 for w in want)
 
 
 def test_divergences_name_the_first_differing_choice(spotted):
