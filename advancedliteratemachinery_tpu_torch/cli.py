@@ -22,11 +22,17 @@ The arguments are the JAX CLI's. Models run on the card unless
 torch checkpoint of the recognizer (of OmniParser for `vie`, `table-html`
 and `table-eval`) through `--torch-ckpt`. `vie`, `table-html` and
 `table-eval` resize pages as the JAX commands' PIL `Image.resize` does
-(BICUBIC), on the device (`ops/image.py` `resize_bicubic_u8`). Three JAX
-arguments are refused with a clear error: `--ckpt` (the JAX package's
-Orbax checkpoints), `--visualize` and `--formula-onnx`. Pages and crops
-are PNG (any bit depth, interlaced or not), baseline JPEG or `.npy`
-files (`pipelines/file_loading.py`).
+(BICUBIC), on the device (`ops/image.py` `resize_bicubic_u8`). One JAX
+argument is refused with a clear error: `--ckpt` (the JAX package's
+Orbax checkpoints). `--visualize OUT.png` on `read`, `structurize` and
+`table` draws the result on the decoded page as the JAX commands do
+(`utils/visualization.py`, cv2's drawing without cv2) and writes a PNG.
+`structurize --formula-onnx DIR` loads a LaTeX-OCR ONNX trio
+(`FormulaRecognition.from_onnx`, which needs onnxruntime); as in the JAX
+CLI, its whole-page layout is one "plain text" region, so the formula
+model is loaded but reaches no region. Pages and crops are PNG (any bit
+depth, interlaced or not), JPEG (baseline or progressive; gray, YCbCr,
+RGB, CMYK or YCCK) or `.npy` files (`pipelines/file_loading.py`).
 
 `read`, `structurize`, `table` and `convert` detect text as the JAX CLI
 does: DB, then the host `extract_boxes` on its probability map
@@ -44,23 +50,13 @@ import sys
 
 
 def _refuse_unported(args) -> None:
-    """The JAX CLI's arguments that the port does not take yet exit with a
-    message naming what to use instead or what is queued."""
+    """The JAX CLI's `--ckpt` exits with a message naming what to use
+    instead."""
     if getattr(args, "ckpt", None):
         raise SystemExit(
             "--ckpt loads the JAX package's Orbax checkpoints, which the "
             "PyTorch port does not read; pass a reference torch checkpoint "
             "with --torch-ckpt")
-    if getattr(args, "visualize", None):
-        raise SystemExit(
-            "--visualize needs utils/visualization.py, which the PyTorch "
-            "port has not ported yet (queued)")
-    if getattr(args, "formula_onnx", None):
-        raise SystemExit(
-            "--formula-onnx needs pipelines/latex_ocr.py "
-            "(FormulaRecognition.from_onnx), which the PyTorch port has not "
-            "ported yet (queued); inject a callable into "
-            "FormulaRecognition instead")
 
 
 def _load_image(path: str):
@@ -255,13 +251,26 @@ def _structurizer(args):
     from advancedliteratemachinery_tpu_torch.pipelines.document import (
         DocumentStructurization)
     from advancedliteratemachinery_tpu_torch.pipelines.modules import (
-        LayoutAnalysis, TextDetection)
+        FormulaRecognition, LayoutAnalysis, TextDetection)
 
+    formula = None              # first: a missing onnxruntime fails fast
+    if getattr(args, "formula_onnx", None):
+        formula = FormulaRecognition.from_onnx(args.formula_onnx,
+                                               device=args.device)
     engine = _rec_engine(args)
     return DocumentStructurization(
         LayoutAnalysis(_whole_page_layout),
         TextDetection(_db_detect_fn(args)), _recognition(args, engine),
-        device=args.device)
+        formula_recognition=formula, device=args.device)
+
+
+def _visualize(args, draw, image, out) -> None:
+    """`--visualize OUT.png`: the result drawn on the decoded page."""
+    if getattr(args, "visualize", None):
+        from advancedliteratemachinery_tpu_torch.utils import visualization
+
+        visualization.save_image(getattr(visualization, draw)(image, out),
+                                 args.visualize)
 
 
 def cmd_recognize(args) -> int:
@@ -287,13 +296,18 @@ def cmd_read(args) -> int:
     engine = _rec_engine(args)
     pipe = GeneralTextReading(TextDetection(_db_detect_fn(args)),
                               _recognition(args, engine))
-    print(json.dumps(pipe(_load_image(args.image)), indent=2,
-                     default=float))
+    image = _load_image(args.image)
+    out = pipe(image)
+    _visualize(args, "draw_reading", image, out)
+    print(json.dumps(out, indent=2, default=float))
     return 0
 
 
 def cmd_structurize(args) -> int:
-    out = _structurizer(args)(_load_image(args.image))
+    pipe = _structurizer(args)
+    image = _load_image(args.image)
+    out = pipe(image)
+    _visualize(args, "draw_structurization", image, out)
     print(json.dumps(out, indent=2, default=float))
     return 0
 
@@ -310,8 +324,10 @@ def cmd_table(args) -> int:
     pipe = TableParsing(TableStructureRecognition(_lore_table_fn(args)),
                         TextDetection(_db_detect_fn(args)),
                         _recognition(args, engine))
-    print(json.dumps(pipe(_load_image(args.image)), indent=2,
-                     default=float))
+    image = _load_image(args.image)
+    out = pipe(image)
+    _visualize(args, "draw_table", image, out)
+    print(json.dumps(out, indent=2, default=float))
     return 0
 
 
@@ -744,12 +760,12 @@ def parse_args(argv=None) -> argparse.Namespace:
         _common(p)
         p.add_argument("--det-thresh", type=float, default=0.3)
         p.add_argument("--visualize", metavar="OUT.png",
-                       help="refused: utils/visualization.py is not "
-                            "ported yet")
+                       help="write the result drawn on the page (PNG)")
         if name == "structurize":
             p.add_argument("--formula-onnx", metavar="DIR",
-                           help="refused: pipelines/latex_ocr.py is not "
-                                "ported yet")
+                           help="LaTeX-OCR ONNX model dir (encoder/decoder"
+                                "/resizer + tokenizer.json); needs "
+                                "onnxruntime")
 
     p = sub.add_parser("convert",
                        help="whole image/PDF → per-page structurization")

@@ -11,7 +11,10 @@ itself, each as PIL's `Image.open(...).convert("RGB")` gives it:
   dropped, gray is replicated, palettes looked up, 1-, 2- and 4-bit gray
   scaled to 8 bits; 16-bit gray is PIL's mode `I;16`, which
   `convert("RGB")` clips at 255, and 16-bit colour keeps its high byte;
-- baseline JPEG (`pipelines/jpeg.py`);
+- JPEG, baseline or progressive, gray, YCbCr, Adobe RGB, CMYK and YCCK
+  (`pipelines/jpeg.py`); a progressive file that libjpeg-turbo would
+  block-smooth, and lossless, hierarchical, arithmetic-coded and 12-bit
+  files raise `ValueError` naming the variant;
 - `.npy` arrays (uint8 [H, W], [H, W, 3] or [H, W, 4]).
 
 Any other format raises `ValueError`. As PIL refuses a decompression bomb,
@@ -244,8 +247,8 @@ def other_format(data: bytes) -> Optional[str]:
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """Image file bytes (PNG, baseline JPEG or `.npy`), told apart by their
-    magic bytes → uint8 RGB [H, W, 3]."""
+    """Image file bytes (PNG, JPEG or `.npy`), told apart by their magic
+    bytes → uint8 RGB [H, W, 3]."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data)
     if data.startswith(JPEG_SIGNATURE):
@@ -253,7 +256,8 @@ def decode_image(data: bytes) -> np.ndarray:
     if data.startswith(NPY_MAGIC):
         return _from_npy(data)
     kind = other_format(data) or "unrecognised"
-    raise ValueError(f"{kind} image: the port decodes PNG, baseline JPEG "
+    raise ValueError(f"{kind} image: the port decodes PNG, JPEG (baseline "
+                     f"and progressive; gray, YCbCr, RGB, CMYK and YCCK) "
                      f"and .npy; TIFF, BMP, WebP and GIF are queued")
 
 

@@ -1,17 +1,32 @@
-"""Baseline JPEG decoding in NumPy, as PIL's libjpeg-turbo (6.2 API)
-decodes it: `decode_jpeg(data)` equals `Image.open(...).convert("RGB")`.
+"""JPEG decoding in NumPy, as PIL's libjpeg-turbo (6.2 API) decodes it:
+`decode_jpeg(data)` equals `Image.open(...).convert("RGB")`.
 
-- Frames: SOF0 and SOF1 with 8-bit samples, one component (gray, given
-  as RGB) or three (YCbCr), any sampling factors, interleaved or not,
-  with restart intervals (DRI/RSTn) and any Huffman tables (optimised
-  ones too). Progressive (SOF2), lossless and hierarchical frames,
-  arithmetic coding, 12-bit samples, CMYK/YCCK and Adobe RGB files raise
-  `ValueError` naming the variant: they are queued, and nothing falls
-  back.
+- Frames: SOF0 and SOF1 (sequential) and SOF2 (progressive) with 8-bit
+  samples, any sampling factors, interleaved scans or not, restart
+  intervals (DRI/RSTn) and any Huffman tables (optimised ones too).
+- Colour: one component (gray, given as RGB); three as YCbCr, or RGB
+  where libjpeg's `default_decompress_parms` says so (an Adobe marker
+  with transform 0 and no JFIF marker, or component ids R, G, B); four
+  as CMYK (Adobe transform 0, or no Adobe marker) or YCCK (any other
+  transform; `jdcolor.c` `ycck_cmyk_convert`), which PIL reads as
+  inverted `CMYK;I` samples and converts with `Convert.c` `cmyk2rgb`.
+- Progressive scans decode into one coefficient array a component: DC
+  first and refinement scans (interleaved or not), AC first scans with
+  EOB runs, and AC refinement with its correction bits (ITU T.81
+  G.1.2.3). A file whose scans leave any of the first ten AC
+  coefficients unrefined raises `ValueError`: libjpeg-turbo would
+  block-smooth it (`jdcoefct.c` `decompress_smooth_data`), which is not
+  reproduced. Files written with libjpeg's default progression (PIL's
+  `progressive=True`) refine every coefficient.
+- Lossless and hierarchical frames, arithmetic coding and 12-bit samples
+  raise `ValueError` naming the variant: they are queued, and nothing
+  falls back.
 - Huffman decoding looks up 16 bits at a time, as libjpeg's `jdhuff.c`
   does with its lookahead: one table entry gives a short code's run, its
   length with its magnitude bits and the coefficient's value, so the
-  Python loop takes one step per coefficient.
+  Python loop takes one step per coefficient (per coefficient position
+  of a band in an AC refinement scan). DC refinement scans, one bit a
+  block, are read in NumPy.
 - Dequantisation and libjpeg's integer ISLOW IDCT (`jidctint.c`: 13-bit
   constants, 2 extra bits between the passes, its range-limit table) run
   on all blocks at once in int64.
@@ -43,7 +58,7 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 _UNSUPPORTED_SOF = {
-    0xC2: "progressive JPEG (SOF2)", 0xC3: "lossless JPEG (SOF3)",
+    0xC3: "lossless JPEG (SOF3)",
     0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical JPEG (SOF6)",
     0xC7: "hierarchical JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
     0xCA: "arithmetic-coded JPEG (SOF10)",
@@ -55,7 +70,9 @@ _UNSUPPORTED_SOF = {
 # entries of the AC lookup table (16 peeked bits → one int):
 # > 0, a whole coefficient: bits used | run << 5 | (value + 2048) << 9;
 # < 0, -(code length | kind << 5 | run << 7 | size << 11) with kind
-# EOB, ZRL or LONG (magnitude bits past the 16 peeked); 0, no code
+# EOB (every run/size symbol of size 0 but ZRL; its run is a progressive
+# EOB run's r), ZRL or LONG (magnitude bits past the 16 peeked); 0, no
+# code
 _EOB, _ZRL, _LONG = 1, 2, 3
 
 
@@ -64,9 +81,9 @@ def _ceil_div(a: int, b: int) -> int:
 
 
 def _unsupported(what: str) -> ValueError:
-    return ValueError(f"{what} is not decoded by the port (queued; only "
-                      f"baseline JPEG is); convert the file to baseline "
-                      f"JPEG or PNG")
+    return ValueError(f"{what} is not decoded by the port (queued; "
+                      f"baseline and progressive Huffman-coded 8-bit JPEG "
+                      f"are); convert the file to baseline JPEG or PNG")
 
 
 def _extend(raw, size):
@@ -74,13 +91,14 @@ def _extend(raw, size):
     return np.where(raw < (1 << size) >> 1, raw - (1 << size) + 1, raw)
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=32)
 def _huffman_lut(counts: bytes, symbols: bytes, ac: bool) -> List[int]:
     """A table's canonical codes → its 65536-entry lookup table on the
     next 16 bits (AC: the entries above; DC: bits used | (diff + 4096) << 5
     when code and magnitude fit in 16 bits, else -(code length | size <<
     11)). Tables repeat from file to file (most encoders write the
-    standard ones), so the last 16 are kept; the decoder only reads
+    standard ones; a progressive file has one a scan), so the last 32
+    are kept; the decoder only reads
     them."""
     length = np.zeros(1 << 16, np.int64)
     sym = np.zeros(1 << 16, np.int64)
@@ -104,7 +122,8 @@ def _huffman_lut(counts: bytes, symbols: bytes, ac: bool) -> List[int]:
         entry = np.where(fits, total | (run << 5) | ((value + 2048) << 9),
                          -(length | (_LONG << 5) | (run << 7)
                            | (size << 11)))
-        entry = np.where(sym == 0x00, -(length | (_EOB << 5)), entry)
+        entry = np.where((size == 0) & (sym != 0xF0),
+                         -(length | (_EOB << 5) | (run << 7)), entry)
         entry = np.where(sym == 0xF0, -(length | (_ZRL << 5)), entry)
     else:
         entry = np.where(fits, total | ((value + 4096) << 5),
@@ -279,16 +298,23 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
     return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
 
 
+# libjpeg-turbo's block smoothing (jdcoefct.c `smoothing_ok`) reads the
+# first SAVED_COEFS coefficients' precision and these quantisers
+_SMOOTH_COEFS = 10
+_SMOOTH_QUANT = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
+
+
 def _read_frame(data: bytes):
-    """Markers → (frame header, quant tables, scans), each scan (its
-    component indices with their table ids, restart interval, its
-    restart intervals' entropy bytes)."""
+    """Markers → (frame header, progressive?, colour space, quant tables,
+    scans), each scan (its members: component index with its Huffman
+    tables' (counts, symbols) or None; restart interval; (Ss, Se, Ah,
+    Al); its restart intervals' entropy bytes)."""
     if not data.startswith(b"\xff\xd8"):
         raise ValueError("not a JPEG")
-    pos, frame, adobe = 2, None, None
+    pos, frame, adobe, jfif, progressive = 2, None, None, False, False
     quant: Dict[int, np.ndarray] = {}
-    dc_tabs: Dict[int, List[int]] = {}
-    ac_tabs: Dict[int, List[int]] = {}
+    dc_tabs: Dict[int, tuple] = {}
+    ac_tabs: Dict[int, tuple] = {}
     restart, scans = 0, []
     while True:
         while pos < len(data) and data[pos] == 0xFF:
@@ -310,7 +336,9 @@ def _read_frame(data: bytes):
             raise _unsupported(_UNSUPPORTED_SOF[marker])
         if marker == 0xCC:
             raise _unsupported("arithmetic-coded JPEG (DAC)")
-        if marker == 0xEE and body.startswith(b"Adobe") and len(body) >= 12:
+        if marker == 0xE0 and body.startswith(b"JFIF\x00") and len(body) >= 12:
+            jfif = True                     # libjpeg's APP0_DATA_LEN - 2
+        elif marker == 0xEE and body.startswith(b"Adobe") and len(body) >= 12:
             adobe = body[11]
         elif marker == 0xDB:                                # DQT
             at = 0
@@ -329,13 +357,13 @@ def _read_frame(data: bytes):
                 cls, tid = body[at] >> 4, body[at] & 15
                 counts = bytes(body[at + 1:at + 17])
                 total = sum(counts)
-                symbols = bytes(body[at + 17:at + 17 + total])
-                (ac_tabs if cls else dc_tabs)[tid] = _huffman_lut(
-                    counts, symbols, bool(cls))
+                (ac_tabs if cls else dc_tabs)[tid] = (
+                    counts, bytes(body[at + 17:at + 17 + total]))
                 at += 17 + total
         elif marker == 0xDD:                                # DRI
             restart = struct.unpack(">H", body[:2])[0]
-        elif marker in (0xC0, 0xC1):                        # SOF0/1
+        elif marker in (0xC0, 0xC1, 0xC2):                  # SOF0/1/2
+            progressive = marker == 0xC2
             prec, h, w, nc = struct.unpack(">BHHB", body[:6])
             if prec != 8:
                 raise _unsupported(f"{prec}-bit JPEG")
@@ -355,39 +383,327 @@ def _read_frame(data: bytes):
                 raise ValueError("JPEG: scan before the frame header")
             ns = body[0]
             ids = [c[0] for c in frame[2]]
+            ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
             members = []
             for i in range(ns):
                 cid, tables = body[1 + 2 * i], body[2 + 2 * i]
                 if cid not in ids:
                     raise ValueError(f"JPEG: scan names component {cid}")
-                try:
-                    members.append((ids.index(cid), dc_tabs[tables >> 4],
-                                    ac_tabs[tables & 15]))
-                except KeyError:
-                    raise ValueError("JPEG: scan uses an undefined "
-                                     "Huffman table") from None
+                # a table the scan does not use may be undefined
+                members.append((ids.index(cid), dc_tabs.get(tables >> 4),
+                                ac_tabs.get(tables & 15)))
             end = re.compile(rb"\xff(?![\x00\xd0-\xd7\xff])").search(
                 data, pos)
             stop = end.start() if end else len(data)
             intervals = re.split(rb"\xff[\xd0-\xd7]", data[pos:stop])
-            scans.append((members, restart, intervals))
+            scans.append((members, restart, (ss, se, a >> 4, a & 15),
+                          intervals))
             pos = stop
     if frame is None or not scans:
         raise ValueError("JPEG: no frame or no scan")
-    nc = len(frame[2])
-    if nc == 4:
-        raise _unsupported("CMYK/YCCK JPEG")
-    if nc not in (1, 3):
-        raise _unsupported(f"JPEG with {nc} components")
-    if nc == 3 and adobe == 0:
-        raise _unsupported("Adobe RGB JPEG (no colour transform)")
-    return frame, quant, scans
+    return frame, progressive, _colour_space(frame, jfif, adobe), quant, \
+        scans
+
+
+def _colour_space(frame, jfif: bool, adobe) -> str:
+    """The coded colour space as libjpeg's `default_decompress_parms`
+    (jdapimin.c) tells it from the components, JFIF and Adobe markers."""
+    comps = frame[2]
+    if len(comps) == 1:
+        return "gray"
+    if len(comps) == 3:
+        if jfif:
+            return "ycc"
+        if adobe is not None:
+            return "rgb" if adobe == 0 else "ycc"
+        return "rgb" if [c[0] for c in comps] == [82, 71, 66] else "ycc"
+    if len(comps) == 4:
+        return "cmyk" if adobe is None or adobe == 0 else "ycck"
+    raise _unsupported(f"JPEG with {len(comps)} components")
+
+
+def _lut(table, ac: bool) -> List[int]:
+    if table is None:
+        raise ValueError("JPEG: scan uses an undefined Huffman table")
+    return _huffman_lut(table[0], table[1], ac)
+
+
+def _scan_blocks(members, comps, grids, first, H, W, hmax, vmax):
+    """A scan's blocks in coding order → (component slot of each, global
+    block index of each, blocks an MCU). A non-interleaved scan covers
+    the component's blocks inside the image, ceil(w/8) × ceil(h/8) of
+    its own size; an interleaved one whole MCUs."""
+    mcux = _ceil_div(W, 8 * hmax)
+    mcuy = _ceil_div(H, 8 * vmax)
+    if len(members) == 1:
+        ci = members[0][0]
+        _, h, v, _ = comps[ci]
+        nby = _ceil_div(_ceil_div(H * v, vmax), 8)
+        nbx = _ceil_div(_ceil_div(W * h, hmax), 8)
+        rows, cols = np.divmod(np.arange(nby * nbx), nbx)
+        return (np.zeros(len(rows), np.int64),
+                first[ci] + rows * grids[ci][1] + cols, 1)
+    my, mx = np.divmod(np.arange(mcuy * mcux), mcux)
+    blocks, slots = [], []
+    for slot, (ci, _, _) in enumerate(members):
+        _, h, v, _ = comps[ci]
+        yy, xx = np.divmod(np.arange(v * h), h)
+        blocks.append(first[ci] + (my[:, None] * v + yy) * grids[ci][1]
+                      + mx[:, None] * h + xx)
+        slots.append(np.full(blocks[-1].shape, slot))
+    return (np.concatenate(slots, -1).ravel(),
+            np.concatenate(blocks, -1).ravel(),
+            sum(b.shape[1] for b in blocks))
+
+
+def _intervals(scan, per_mcu, n):
+    """(interval's entropy bytes, its first and last block + 1) of a
+    scan of `n` blocks."""
+    _, restart, _, intervals = scan
+    step = restart * per_mcu if restart else n
+    for i, start in enumerate(range(0, n, step)):
+        if i >= len(intervals):
+            raise ValueError("JPEG: missing restart interval data")
+        yield intervals[i], start, min(n, start + step)
+
+
+def _baseline_coefs(scans, comps, grids, first, H, W, hmax, vmax):
+    """Sequential scans → int32 [blocks, 64] coefficients, natural order."""
+    packed: List[int] = []
+    for scan in scans:
+        members = scan[0]
+        slots, blocks, per_mcu = _scan_blocks(members, comps, grids, first,
+                                              H, W, hmax, vmax)
+        order = list(zip(slots.tolist(), (blocks * 64).tolist()))
+        dc = [_lut(m[1], False) for m in members]
+        ac = [_lut(m[2], True) for m in members]
+        for seg, a, b in _intervals(scan, per_mcu, len(order)):
+            _decode_interval(_windows(seg), order[a:b], dc, ac,
+                             packed.append)
+    coefs = np.zeros(int(first[-1]) * 64, np.int32)
+    packed = np.asarray(packed, np.int64)
+    flat = packed >> 16
+    coefs[(flat & ~63) | ZIGZAG[flat & 63]] = (packed & 0xFFFF) - 32768
+    return coefs.reshape(-1, 64)
+
+
+def _bits(win, pos, n):
+    return (win[pos >> 3] >> (40 - (pos & 7) - n)) & ((1 << n) - 1)
+
+
+def _dc_first(win, blocks, slots, luts, al, coef):
+    """A DC first scan's interval: each block's DC difference, predicted
+    from its component's last DC, shifted up by Al."""
+    pos = 0
+    pred = [0] * len(luts)
+    out = []
+    for c in slots:
+        e = luts[c][(win[pos >> 3] >> (24 - (pos & 7))) & 0xFFFF]
+        if e > 0:
+            pos += e & 31
+            diff = (e >> 5) - 4096
+        elif e < 0:
+            e = -e
+            pos += e & 31
+            size = e >> 11
+            raw = _bits(win, pos, size)
+            pos += size
+            diff = (raw - (1 << size) + 1 if size and raw < 1 << (size - 1)
+                    else raw)
+        else:
+            raise ValueError("JPEG: corrupt data (no DC code)")
+        pred[c] += diff
+        out.append(pred[c] << al)
+    coef[blocks, 0] = out
+
+
+def _dc_refine(seg, blocks, al, coef):
+    """A DC refinement scan's interval: one bit a block, in NumPy."""
+    bits = np.unpackbits(np.frombuffer(
+        seg.replace(b"\xff\x00", b"\xff"), np.uint8))[:len(blocks)]
+    bits = np.pad(bits, (0, len(blocks) - len(bits))).astype(np.int32)
+    coef[blocks, 0] |= bits << al
+
+
+def _ac_first(win, blocks, lut, ss, se, al, coef):
+    """An AC first scan's interval (one component): run/size codes from
+    Ss to Se, EOB runs spanning blocks (ITU T.81 G.1.2.2)."""
+    pos, eobrun = 0, 0
+    at, vals = [], []
+    for blk in blocks:
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        while k <= se:
+            e = lut[(win[pos >> 3] >> (24 - (pos & 7))) & 0xFFFF]
+            if e > 0:
+                pos += e & 31
+                k += (e >> 5) & 15
+                at.append(blk * 64 + k)
+                vals.append(((e >> 9) - 2048) << al)
+                k += 1
+                continue
+            if e == 0:
+                raise ValueError("JPEG: corrupt data (no AC code)")
+            e = -e
+            pos += e & 31
+            kind = (e >> 5) & 3
+            if kind == _EOB:
+                r = (e >> 7) & 15
+                eobrun = (1 << r) + (_bits(win, pos, r) if r else 0) - 1
+                pos += r
+                break
+            if kind == _ZRL:
+                k += 16
+                continue
+            size = e >> 11
+            raw = _bits(win, pos, size)
+            pos += size
+            k += (e >> 7) & 15
+            at.append(blk * 64 + k)
+            vals.append((raw - (1 << size) + 1 if raw < 1 << (size - 1)
+                         else raw) << al)
+            k += 1
+        if k > se + 1:
+            raise ValueError("JPEG: corrupt data (run past the band)")
+    if at:
+        coef.reshape(-1)[np.asarray(at)] = vals
+
+
+def _ac_refine(win, blocks, lut, ss, se, al, coef):
+    """An AC refinement scan's interval (ITU T.81 G.1.2.3, libjpeg's
+    `decode_mcu_AC_refine`): a correction bit for each coefficient
+    already nonzero that a zero run or an EOB run passes, read between
+    the run counts, and newly nonzero coefficients of ±2^Al."""
+    p1, m1 = 1 << al, -1 << al
+    rows = coef[blocks].tolist()
+    pos, eobrun = 0, 0
+    for row in rows:
+        k = ss
+        if not eobrun:
+            while k <= se:
+                e = lut[(win[pos >> 3] >> (24 - (pos & 7))) & 0xFFFF]
+                if e > 0:
+                    pos += e & 31
+                    r = (e >> 5) & 15
+                    if ((e >> 9) - 2048) not in (1, -1):
+                        raise ValueError("JPEG: corrupt data (refinement "
+                                         "coefficient of more than 1 bit)")
+                    s = p1 if (e >> 9) > 2048 else m1
+                elif e == 0:
+                    raise ValueError("JPEG: corrupt data (no AC code)")
+                else:
+                    e = -e
+                    pos += e & 31
+                    kind = (e >> 5) & 3
+                    if kind == _EOB:
+                        r = (e >> 7) & 15
+                        eobrun = (1 << r) + (_bits(win, pos, r) if r else 0)
+                        pos += r
+                        break
+                    if kind == _ZRL:
+                        r, s = 15, 0
+                    else:               # a 16-bit code and its sign bit
+                        if e >> 11 != 1:
+                            raise ValueError(
+                                "JPEG: corrupt data (refinement "
+                                "coefficient of more than 1 bit)")
+                        r = (e >> 7) & 15
+                        s = p1 if _bits(win, pos, 1) else m1
+                        pos += 1
+                while k <= se:
+                    c = row[k]
+                    if c:
+                        if (win[pos >> 3] >> (39 - (pos & 7))) & 1 and \
+                                not c & p1:
+                            row[k] = c + p1 if c >= 0 else c + m1
+                        pos += 1
+                    elif r:
+                        r -= 1
+                    else:
+                        break
+                    k += 1
+                if s:
+                    if k > se:
+                        raise ValueError("JPEG: corrupt data (run past "
+                                         "the band)")
+                    row[k] = s
+                k += 1
+        if eobrun:
+            for k in range(k, se + 1):
+                c = row[k]
+                if c:
+                    if (win[pos >> 3] >> (39 - (pos & 7))) & 1 and \
+                            not c & p1:
+                        row[k] = c + p1 if c >= 0 else c + m1
+                    pos += 1
+            eobrun -= 1
+    coef[blocks] = rows
+
+
+def _progressive_coefs(scans, comps, grids, first, H, W, hmax, vmax,
+                       quant):
+    """Progressive scans → int32 [blocks, 64] coefficients, natural order.
+    Raises where libjpeg-turbo would smooth the blocks instead."""
+    coef = np.zeros((int(first[-1]), 64), np.int32)        # zigzag order
+    coef_bits = np.full((len(comps), 64), -1)
+    for scan in scans:
+        members, _, (ss, se, ah, al), _ = scan
+        if ss > se or se > 63 or (ss == 0) != (se == 0) or (
+                ss and len(members) != 1):
+            raise ValueError(f"JPEG: bad progression parameters Ss={ss} "
+                             f"Se={se}")
+        slots, blocks, per_mcu = _scan_blocks(members, comps, grids, first,
+                                              H, W, hmax, vmax)
+        if ss == 0 and ah == 0:
+            luts = [_lut(m[1], False) for m in members]
+        elif ss:
+            lut = _lut(members[0][2], True)
+        for seg, a, b in _intervals(scan, per_mcu, len(blocks)):
+            if ss == 0 and ah:
+                _dc_refine(seg, blocks[a:b], al, coef)
+                continue
+            win = _windows(seg)
+            if ss == 0:
+                _dc_first(win, blocks[a:b], slots[a:b].tolist(), luts, al,
+                          coef)
+            elif ah == 0:
+                _ac_first(win, blocks[a:b].tolist(), lut, ss, se, al, coef)
+            else:
+                _ac_refine(win, blocks[a:b], lut, ss, se, al, coef)
+        for ci, _, _ in members:
+            coef_bits[ci, ss:se + 1] = al
+    for ci, (_, _, _, tq) in enumerate(comps):
+        q = quant.get(tq)
+        if (coef_bits[ci, 0] >= 0 and q is not None
+                and q[list(_SMOOTH_QUANT)].all()
+                and (coef_bits[ci, 1:_SMOOTH_COEFS] != 0).any()):
+            raise _unsupported(
+                "progressive JPEG whose scans leave low AC coefficients "
+                "unrefined (libjpeg-turbo block-smooths such a file)")
+    natural = np.empty_like(coef)
+    natural[:, ZIGZAG] = coef
+    return natural
+
+
+def _cmyk_rgb(c, m, y, k) -> np.ndarray:
+    """PIL's CMYK (inverted `CMYK;I` samples, as its JPEG plugin reads
+    every 4-component file) → RGB: Convert.c `cmyk2rgb`."""
+    nk = 255 - k.astype(np.int64)
+
+    def channel(v):
+        t = v.astype(np.int64) * nk + 128
+        return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255)
+
+    return np.stack([channel(c), channel(m), channel(y)], -1).astype(
+        np.uint8)
 
 
 def decode_jpeg(data: bytes) -> np.ndarray:
-    """Baseline JPEG bytes → uint8 RGB [H, W, 3], as PIL's
+    """Baseline or progressive JPEG bytes → uint8 RGB [H, W, 3], as PIL's
     `Image.open(...).convert("RGB")`."""
-    (H, W, comps), quant, scans = _read_frame(data)
+    (H, W, comps), progressive, space, quant, scans = _read_frame(data)
     hmax = max(c[1] for c in comps)
     vmax = max(c[2] for c in comps)
     if any(hmax % h or vmax % v for _, h, v, _ in comps):
@@ -397,44 +713,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     # every component's blocks on its MCU-padded grid, in one flat array
     grids = [(mcuy * v, mcux * h) for _, h, v, _ in comps]
     first = np.cumsum([0] + [by * bx for by, bx in grids])
-    packed: List[int] = []
-    for members, restart, intervals in scans:
-        if len(members) == 1:              # non-interleaved: the component
-            ci = members[0][0]             # blocks inside the image only
-            _, h, v, _ = comps[ci]
-            nby = _ceil_div(_ceil_div(H * v, vmax), 8)
-            nbx = _ceil_div(_ceil_div(W * h, hmax), 8)
-            rows, cols = np.divmod(np.arange(nby * nbx), nbx)
-            offs = [(first[ci] + rows * grids[ci][1] + cols) * 64]
-            slots = [np.zeros(len(rows), np.int64)]
-            per_mcu = 1
-        else:                              # interleaved MCUs
-            my, mx = np.divmod(np.arange(mcuy * mcux), mcux)
-            offs, slots = [], []
-            for slot, (ci, _, _) in enumerate(members):
-                _, h, v, _ = comps[ci]
-                yy, xx = np.divmod(np.arange(v * h), h)
-                b = ((my[:, None] * v + yy) * grids[ci][1]
-                     + mx[:, None] * h + xx)
-                offs.append((first[ci] + b) * 64)
-                slots.append(np.full(b.shape, slot))
-            per_mcu = sum(o.shape[1] for o in offs)
-        order = list(zip(np.concatenate(slots, -1).ravel().tolist(),
-                         np.concatenate(offs, -1).ravel().tolist()))
-        dc = [m[1] for m in members]
-        ac = [m[2] for m in members]
-        step = restart * per_mcu if restart else len(order)
-        for i, start in enumerate(range(0, len(order), step)):
-            if i >= len(intervals):
-                raise ValueError("JPEG: missing restart interval data")
-            _decode_interval(_windows(intervals[i]),
-                             order[start:start + step], dc, ac,
-                             packed.append)
-    coefs = np.zeros(int(first[-1]) * 64, np.int32)
-    packed = np.asarray(packed, np.int64)
-    flat = packed >> 16
-    coefs[(flat & ~63) | ZIGZAG[flat & 63]] = (packed & 0xFFFF) - 32768
-    coefs = coefs.reshape(-1, 64)
+    geometry = (comps, grids, first, H, W, hmax, vmax)
+    coefs = (_progressive_coefs(scans, *geometry, quant) if progressive
+             else _baseline_coefs(scans, *geometry))
     planes = []
     for ci, (_, h, v, tq) in enumerate(comps):
         if tq not in quant:
@@ -446,6 +727,15 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         dh, dw = _ceil_div(H * v, vmax), _ceil_div(W * h, hmax)
         plane = _upsample(plane[:dh, :dw], hmax // h, vmax // v)
         planes.append(plane[:H, :W])
-    if len(planes) == 1:
+    if space == "gray":
         return np.repeat(planes[0].astype(np.uint8)[..., None], 3, -1)
-    return _ycc_to_rgb(*planes)
+    if space == "ycc":
+        return _ycc_to_rgb(*planes)
+    if space == "rgb":
+        return np.stack(planes, -1).astype(np.uint8)
+    # libjpeg gives CMYK (YCCK's first three through `ycck_cmyk_convert`:
+    # 255 - its YCbCr → RGB); PIL reads it inverted
+    cmy = (_ycc_to_rgb(*planes[:3]) if space == "ycck"
+           else 255 - np.stack(planes[:3], -1))
+    return _cmyk_rgb(cmy[..., 0], cmy[..., 1], cmy[..., 2],
+                     255 - planes[3])

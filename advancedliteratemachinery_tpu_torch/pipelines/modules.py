@@ -157,15 +157,26 @@ class TableStructureRecognition:
 
 class FormulaRecognition:
     """Math formula → LaTeX on formula regions (reference
-    modules/formula_recognition.py:11), from an injected callable
-    `latex_fn(crop_u8) -> str` (for example an image-to-sequence model).
-    `__call__(image)` returns {'latex': str}; `on_regions(image,
-    polygons)` maps each region's crop."""
+    modules/formula_recognition.py:11), from a callable `latex_fn(crop_u8)
+    -> str`: `FormulaRecognition.from_onnx(model_dir)` loads a
+    LaTeX-OCR-format ONNX trio through `pipelines/latex_ocr.py` (needs
+    onnxruntime; the JAX module's error without it), or inject any
+    callable (for example an image-to-sequence model). The region crops
+    are rectified on `device`. `__call__(image)` returns {'latex': str};
+    `on_regions(image, polygons)` maps each region's crop."""
 
     def __init__(self, latex_fn: Callable[[np.ndarray], str],
                  device: Union[str, torch.device, None] = None):
         self.latex_fn = latex_fn
         self.device = device
+
+    @classmethod
+    def from_onnx(cls, model_dir: str,
+                  device: Union[str, torch.device, None] = None,
+                  **kw) -> "FormulaRecognition":
+        from advancedliteratemachinery_tpu_torch.pipelines.latex_ocr import (
+            LatexOcrOnnx)
+        return cls(LatexOcrOnnx.from_dir(model_dir, **kw), device=device)
 
     def __call__(self, image) -> Dict:
         return {"latex": self.latex_fn(np.asarray(image))}

@@ -163,6 +163,22 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     1240x1754 page with one 1200x40 line and one 40x600 column among its
     words has its crops' peak card memory held under CROP_BYTES_PER_PIXEL
     bytes a pixel of the rectified crops;
+18a. the rest of the DocXChain front (`docxchain_front`, after
+    `docxchain`, with its readable weights): the committed progressive
+    (4:2:0 with restart markers, 4:4:4, gray, a table page), Adobe CMYK
+    and YCCK page files (`tests/fixtures/smoke_front_pages_jpeg.json`)
+    decoded by `load_image` to PIL's recorded hashes, each timed beside
+    the baseline JPEG and the PNG of the same page (a byte-flipped
+    progressive file must raise or miss its hash); `read --visualize`
+    through `cli.main` on the three progressive document pages and
+    `table --visualize` on the table page (12 K1 + 2 K2 a recognizer
+    forward, 16 K3 the table page; the PNG written, decoded by the port,
+    equals `draw_*` of the printed result, and one quad moved a pixel
+    must not); `DocumentStructurization` with DocXLayout's regions and
+    an appended "equation" region through `FormulaRecognition(
+    LatexOcrOnnx(...))` on seeded NumPy sessions (LaTeX equal to that of
+    the region cut on the CPU, calls and ms a region); `structurize
+    --formula-onnx DIR` exits non-zero naming onnxruntime;
 19. the evaluation surface (`evaluation`, after `docxchain`): six LMDB
     STR eval sets of the standard names and sizes (IIIT5k_3000, SVT,
     IC13_857, IC15_1811, SVTP, CUTE80: 7,248 crops of 16-96 x 32-384 px,
@@ -198,7 +214,8 @@ every recognizer forward must launch the attention kernel 12 times and the
 vocab kernel twice, every LORE forward the deformable conv kernel 16
 times and nothing else, every train step the attention kernel and its
 backward kernel 12 times each and nothing else, each document pipeline
-its recognizer's and (tables) LORE's kernels, and the f32 models, the
+its recognizer's and (tables) LORE's kernels (so too each CLI run of
+the front phase), and the f32 models, the
 golden replay, LISTER, LevOCR, OmniParser (its tasks too), LISTER's
 baseline heads and DocXLayout nothing at all,
 and the STR eval pass at batch 64 the recognizer's kernels for each of its
@@ -4216,32 +4233,47 @@ def mixed_crops_phase(engine, det_fn):
     return rec
 
 
+class ReadableDocCLI:
+    """Within the block, the `DBDetector` the port CLI builds gets
+    `readable_db`, and its `LORE` `readable_dla`, the offsets of
+    `reseed_offsets(seed=7)`, `readable_boxes` and the heat head `heat`
+    (fitted and lifted in the smoke's process); the CLI's own model
+    functions and pipelines run as they are."""
+
+    def __init__(self, heat):
+        from advancedliteratemachinery_tpu_torch.models import db, lore
+        self.db, self.lore, self.heat = db, lore, heat
+
+    def __enter__(self):
+        heat = self.heat
+        self.saved = self.db.DBDetector, self.lore.LORE
+
+        class ReadableDB(self.saved[0]):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                readable_db(self)
+
+        class ReadableLORE(self.saved[1]):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                readable_dla(self)
+                reseed_offsets(self, seed=7)
+                readable_boxes(self.backbone.wh_out, LORE_CELL_HALF)
+                self.backbone.hm_out.load_state_dict(heat)
+
+        self.db.DBDetector, self.lore.LORE = ReadableDB, ReadableLORE
+        return self
+
+    def __exit__(self, *exc):
+        self.db.DBDetector, self.lore.LORE = self.saved
+
+
 def readable_cli_main(argv):
-    """`cli.main(argv[1:])` with the smoke's readable weights: the
-    `DBDetector` the CLI builds gets `readable_db`, and its `LORE`
-    `readable_dla`, the offsets of `reseed_offsets(seed=7)`,
-    `readable_boxes` and the heat head (fitted and lifted in the smoke's
-    process) from the file argv[0]. The CLI's own model functions and
-    pipeline run as they are."""
+    """`cli.main(argv[1:])` with the smoke's readable weights
+    (`ReadableDocCLI`), the heat head from the file argv[0]."""
     from advancedliteratemachinery_tpu_torch import cli
-    from advancedliteratemachinery_tpu_torch.models import db, lore
-    heat = torch.load(argv[0])
-
-    class ReadableDB(db.DBDetector):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            readable_db(self)
-
-    class ReadableLORE(lore.LORE):
-        def __init__(self, *a, **k):
-            super().__init__(*a, **k)
-            readable_dla(self)
-            reseed_offsets(self, seed=7)
-            readable_boxes(self.backbone.wh_out, LORE_CELL_HALF)
-            self.backbone.hm_out.load_state_dict(heat)
-
-    db.DBDetector, lore.LORE = ReadableDB, ReadableLORE
-    return cli.main(argv[1:])
+    with ReadableDocCLI(torch.load(argv[0])):
+        return cli.main(argv[1:])
 
 
 def cli_table_subprocess(page, heat, want):
@@ -4738,9 +4770,266 @@ def docxchain_phase(card):
     emit({"phase": "docxchain_seconds", "card": card,
           "seconds": time.perf_counter() - t_phase})
     table = pipes["table"]          # the evaluation phase's doc_parsing set
-    del engine, db, lore, docx, mgp, pipes
+    front = {"engine": engine, "det_fn": det_fn, "layout_fn": layout_fn,
+             "heat": {k: v.detach().clone() for k, v in
+                      lore.backbone.hm_out.state_dict().items()},
+             "doc": docs[0], "table": tables[0]}
+    del db, lore, docx, mgp, pipes
     torch.cuda.empty_cache()
-    return table
+    return table, front
+
+
+# the DocXChain front: the committed page files (PIL's, of document and
+# table page 0) and the record of PIL's decode of each
+FRONT_RECORD = "smoke_front_pages_jpeg.json"
+FRONT_DOCS = ("smoke_doc_page0_prog420_rst_q90.jpg",
+              "smoke_doc_page0_prog444_q60.jpg",
+              "smoke_doc_page0_proggray_q60.jpg")
+FRONT_TABLE = "smoke_table_page0_prog_q90.jpg"
+FRONT_EQUATION = (96, 880, 672, 880, 672, 960, 96, 960)  # the region added
+FRONT_VOCAB = 64          # the fake LaTeX-OCR sessions' tokens
+
+
+def latex_fakes(seed=11):
+    """Seeded NumPy stand-ins for LaTeX-OCR's three ONNX sessions (the
+    card's machine has no onnxruntime), with their feed names: the
+    encoder pools the input on an 8x8 grid through a fixed projection;
+    the decoder's logits read the context and the last token, and end
+    the string at a length the context sets; the resizer shrinks the
+    width by a quarter a round until it settles (several rounds)."""
+    rng = np.random.default_rng(seed)
+    proj = rng.normal(size=(64, 32)).astype(np.float32)
+    emb = rng.normal(size=(FRONT_VOCAB, 32)).astype(np.float32)
+    step = 8 * rng.normal(size=(FRONT_VOCAB, FRONT_VOCAB)).astype(np.float32)
+
+    def encoder(feeds):
+        x = feeds["input"][0, 0]
+        h, w = x.shape
+        grid = x[:h // 8 * 8, :w // 8 * 8].reshape(
+            8, h // 8, 8, w // 8).mean((1, 3)).reshape(-1)
+        return [(grid[:, None] * proj).reshape(1, 64, 32)]
+
+    def decoder(feeds):
+        ids, ctx = feeds["x"], feeds["context"][0]
+        t = ids.shape[1]
+        q = ctx.mean(0) / (np.abs(ctx).mean() + 1e-6)
+        logits = np.zeros((1, t, FRONT_VOCAB), np.float32)
+        logits[0, -1] = emb @ q + step[ids[0, -1]]
+        logits[0, -1, :2] = -1e3                    # no [PAD] or [BOS]
+        logits[0, -1, 2] = 1e3 if t > 4 + int(abs(ctx.sum())) % 12 else -1e3
+        return [logits]
+
+    def resizer(feeds):
+        w = feeds["input"].shape[-1]
+        out = np.zeros((1, 21), np.float32)
+        out[0, min(20, max(1, round(0.75 * w / 32)) - 1)] = 1.0
+        return [out]
+
+    vocab = {0: "[PAD]", 1: "[BOS]", 2: "[EOS]"}
+    vocab.update({i: t for i, t in zip(range(3, FRONT_VOCAB), (
+        "x", "y", "z", "Ġ+", "Ġ-", "=", "^", "_", "{", "}", "\\frac",
+        "\\alpha", "\\beta", "2", "1", "n", "\\sum", "\\int", "(", ")") * 4)})
+    return encoder, decoder, resizer, vocab
+
+
+def front_decodes(docs0, tables0, tmp):
+    """Every front page decoded by `load_image` and held to PIL's hash,
+    timed a page beside the baseline JPEG and the PNG of the same page;
+    the control: a progressive file with a byte of its entropy data
+    flipped must raise or miss its hash."""
+    from advancedliteratemachinery_tpu_torch.pipelines.file_loading import (
+        decode_image, load_image)
+    with open(os.path.join(PAGE_JPEGS, FRONT_RECORD)) as f:
+        record = json.load(f)
+    names = list(record) + ["smoke_doc_page0_q90.jpg",
+                            "smoke_table_page0_q90.jpg"]
+    with open(os.path.join(PAGE_JPEGS, "smoke_pages_jpeg.json")) as f:
+        record.update(json.load(f))
+    for kind, page in (("doc", docs0), ("table", tables0)):
+        with open(os.path.join(tmp, f"{kind}.png"), "wb") as f:
+            f.write(png_bytes(page, PAGE_PNG_FILTERS))
+    pages, ms, equal = {}, {}, {}
+    for name in names:
+        t0 = time.perf_counter()
+        pages[name] = load_image(os.path.join(PAGE_JPEGS, name))
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        equal[name] = (hashlib.sha256(pages[name].tobytes()).hexdigest()
+                       == record[name]["sha256"])
+    for kind, page in (("doc", docs0), ("table", tables0)):
+        t0 = time.perf_counter()
+        png = load_image(os.path.join(tmp, f"{kind}.png"))
+        ms[f"{kind}.png"] = (time.perf_counter() - t0) * 1e3
+        equal[f"{kind}.png"] = bool(np.array_equal(png, page))
+    with open(os.path.join(PAGE_JPEGS, FRONT_DOCS[0]), "rb") as f:
+        data = bytearray(f.read())
+    data[len(data) // 2] ^= 0x24
+    try:
+        flipped = decode_image(bytes(data))
+        control = ("hash missed" if hashlib.sha256(flipped.tobytes())
+                   .hexdigest() != record[FRONT_DOCS[0]]["sha256"]
+                   else "passed the gate")
+    except ValueError as e:
+        control = f"raised: {str(e)[:80]}"
+    rec = {"decode_ms_per_page": ms, "equals_pil": equal,
+           "bytes": {n: os.path.getsize(os.path.join(PAGE_JPEGS, n))
+                     for n in names},
+           "control_byte_flipped": control}
+    emit({"phase": "docxchain_front_decode", **rec})
+    require(all(equal.values()) and control != "passed the gate",
+            f"front pages do not decode to PIL's decodes: {rec}")
+    return pages
+
+
+def front_visualize(heat, pages, det_fn, tmp):
+    """`read --visualize` through `cli.main` on the progressive document
+    pages and `table --visualize` on the progressive table page, with
+    the docxchain phase's readable weights: the launches of each run
+    (K1, K2 per recognizer forward; K3 16 a table page), the written PNG
+    decoded by the port against the drawing in memory, draw and save ms,
+    and the control: a drawing with one quad moved by a pixel must
+    differ from the PNG."""
+    from advancedliteratemachinery_tpu_torch.pipelines.file_loading import (
+        load_image)
+    from advancedliteratemachinery_tpu_torch.utils import visualization
+    runs, control = [], None
+    total = {}
+    with ReadableDocCLI(heat):
+        for name in FRONT_DOCS + (FRONT_TABLE,):
+            cmd, draw = (("table", visualization.draw_table)
+                         if name == FRONT_TABLE else
+                         ("read", visualization.draw_reading))
+            out_png = os.path.join(tmp, name + ".png")
+            out, counts = counted(lambda: cli_json([
+                cmd, os.path.join(PAGE_JPEGS, name), "--variant", "base",
+                "--visualize", out_png]))
+            page = pages[name]
+            fwd = -(-len(det_fn(page)[0]) // 64)
+            want = {"fused_qkv_attention": 12 * fwd,
+                    "vocab_greedy_decode": 2 * fwd}
+            if cmd == "table":
+                want["deform_conv"] = 16
+            t0 = time.perf_counter()
+            drawn = draw(page, out)
+            draw_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            visualization.save_image(drawn, os.path.join(tmp, "again.png"))
+            save_ms = (time.perf_counter() - t0) * 1e3
+            written = load_image(out_png)
+            items = out["cells"] if cmd == "table" else out["instances"]
+            runs.append({"file": name, "command": cmd, "launches": counts,
+                         "expected": want, "items": len(items),
+                         "png_equals_drawing": bool(np.array_equal(
+                             written, drawn)),
+                         "changed_pixels": int((drawn != page).any(-1)
+                                               .sum()),
+                         "draw_ms": draw_ms, "save_ms": save_ms})
+            require(counts == want and runs[-1]["png_equals_drawing"]
+                    and items and runs[-1]["changed_pixels"],
+                    f"{cmd} --visualize on {name}: {runs[-1]}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            if control is None and cmd == "read":
+                moved = json.loads(json.dumps(out))
+                moved["instances"][0]["poly"] = [
+                    v + 1 if i % 2 == 0 else v for i, v in
+                    enumerate(moved["instances"][0]["poly"])]
+                control = bool(np.array_equal(draw(page, moved), written))
+    rec = {"runs": runs, "control_shifted_quad_equal": control}
+    require(control is False,
+            f"the drawing gate passes a quad moved by a pixel: {rec}")
+    return rec, total
+
+
+def front_formula(engine, det_fn, layout_fn, page, tmp, device=None):
+    """`DocumentStructurization` on a page whose layout is DocXLayout's
+    with one "equation" region appended, so that the region reaches
+    `FormulaRecognition(LatexOcrOnnx(...))` on the seeded fake sessions:
+    the region's LaTeX equals the one of its crop cut on the CPU (the
+    crops within a level), the calls and ms a region; then `structurize
+    --formula-onnx DIR` must exit non-zero naming onnxruntime."""
+    from advancedliteratemachinery_tpu_torch.pipelines import (
+        DocumentStructurization, FormulaRecognition, LayoutAnalysis,
+        TextDetection, TextRecognition, crop_image)
+    from advancedliteratemachinery_tpu_torch.pipelines.latex_ocr import (
+        LatexOcrOnnx)
+    encoder, decoder, resizer, vocab = latex_fakes()
+    ocr = LatexOcrOnnx(encoder, decoder, vocab, resizer=resizer)
+    crops, ms = [], []
+
+    def latex(crop):
+        crops.append(np.asarray(crop))
+        t0 = time.perf_counter()
+        out = ocr(crop)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def layout(image):
+        quads, scores, cats = layout_fn(image)
+        return (np.concatenate([np.asarray(quads, np.float32).reshape(-1, 8),
+                                np.asarray([FRONT_EQUATION], np.float32)]),
+                np.append(scores, 1.0), np.append(cats, 10))
+
+    pipe = DocumentStructurization(
+        LayoutAnalysis(layout), TextDetection(det_fn),
+        TextRecognition(engine.recognize, device=device),
+        formula_recognition=FormulaRecognition(latex, device=device),
+        device=device)
+    out, counts = counted(lambda: pipe(page))
+    got = [t["content"]["latex"] for r in out
+           if r["category_name"] == "equation" for t in r["text_list"]]
+    cpu_crop = crop_image(page, order_point(list(FRONT_EQUATION)),
+                          device="cpu")
+    rec = {"regions": len(out), "formula_calls": len(crops), "latex": got,
+           "latex_of_cpu_crop": ocr(cpu_crop),
+           "crop_vs_cpu_max_diff": int(np.abs(
+               crops[-1].astype(np.int16) - cpu_crop).max())
+           if crops else None,
+           "ms_per_region": ms, "launches": counts}
+    d = os.path.join(tmp, "latex")
+    os.makedirs(d)
+    for n in ("encoder_model.onnx", "decoder_model.onnx", "tokenizer.json"):
+        with open(os.path.join(d, n), "w") as f:
+            f.write("{}")
+    with open(os.path.join(tmp, "page.png"), "wb") as f:
+        f.write(png_bytes(page))
+    proc = subprocess.run(
+        [sys.executable, "-m", "advancedliteratemachinery_tpu_torch.cli",
+         "structurize", os.path.join(tmp, "page.png"), "--formula-onnx", d],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    rec["cli_formula_onnx"] = {"rc": proc.returncode,
+                               "names_onnxruntime": "needs onnxruntime"
+                               in proc.stderr,
+                               "last_line": proc.stderr.strip()
+                               .splitlines()[-1][-160:]}
+    require(rec["formula_calls"] > 0 and got and all(got)
+            and got == [rec["latex_of_cpu_crop"]]
+            and rec["crop_vs_cpu_max_diff"] <= 1
+            and proc.returncode != 0
+            and rec["cli_formula_onnx"]["names_onnxruntime"],
+            f"formula recognition: {rec}")
+    return rec
+
+
+def docxchain_front_phase(card, engine, det_fn, layout_fn, heat, doc,
+                          table):
+    """The rest of the DocXChain front on the card: progressive and
+    Adobe-colour JPEG pages decoded to PIL's hashes, `read` and `table`
+    with `--visualize` through the CLI (K1, K2; K3), and formula
+    recognition reached through an "equation" region. → the launches of
+    its CLI runs, by kernel."""
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        pages = front_decodes(doc, table, tmp)
+        vis, launches = front_visualize(heat, pages, det_fn, tmp)
+        emit({"phase": "docxchain_front_visualize", "card": card, **vis})
+        formula = front_formula(engine, det_fn, layout_fn,
+                                pages[FRONT_DOCS[0]], tmp)
+    emit({"phase": "docxchain_front_formula", "card": card, **formula})
+    seconds = time.perf_counter() - t_phase
+    emit({"phase": "docxchain_front", "card": card, "seconds": seconds,
+          "launches": launches})
+    return launches
 
 
 # the evaluation phase: the standard STR eval sets' names and sizes
@@ -5277,8 +5566,12 @@ def main() -> int:
     omniparser_tasks_phase(smi, spot_bf16, spot_f32, omni_pages)
     del spot_bf16, spot_f32, omni_pages
     mark("omniparser_tasks")
-    table_pipe = docxchain_phase(smi)
+    table_pipe, front = docxchain_phase(smi)
     mark("docxchain")
+    front_counts = docxchain_front_phase(smi, **front)
+    del front
+    torch.cuda.empty_cache()
+    mark("docxchain_front")
     evaluation_phase(smi, table_pipe)
     del table_pipe
     torch.cuda.empty_cache()
@@ -5326,6 +5619,7 @@ def main() -> int:
         {"name": "fused_qkv_attention", "route": "cuda", "source": ATTN_SRC,
          "replaces": "advancedliteratemachinery_tpu/ops/attention.py:51",
          "launches": counts["fused_qkv_attention"], "max_abs_err": k1_err,
+         "docxchain_front_launches": front_counts["fused_qkv_attention"],
          "ms": k1["ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1["library_ms"],
@@ -5337,6 +5631,7 @@ def main() -> int:
         {"name": "vocab_greedy_decode", "route": "cuda", "source": DECODE_SRC,
          "replaces": "advancedliteratemachinery_tpu/ops/vocab_decode.py:39",
          "launches": counts["vocab_greedy_decode"], "max_abs_err": k2_err,
+         "docxchain_front_launches": front_counts["vocab_greedy_decode"],
          "ms": k2["ms"], "plain_ms": k2["plain_ms"],
          "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
          "library_ms": k2["library_ms"],
@@ -5345,6 +5640,7 @@ def main() -> int:
          "replaces":
              "advancedliteratemachinery_tpu/ops/deform_conv_pallas.py:36",
          "launches": lore_counts["deform_conv"], "max_abs_err": k3_err,
+         "docxchain_front_launches": front_counts["deform_conv"],
          "ms": k3["ms"], "plain_ms": k3["plain_ms"],
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": k3["library_ms"],

@@ -6,12 +6,17 @@ jpeg.py`) against PIL's `Image.open(...).convert("RGB")`, which the JAX
   plain and Adam7-interlaced, written here with `zlib`; the wavefront
   unfilter against the per-byte loop it replaced; 16-bit gray clipped at
   255 as PIL's `I;16`;
-- JPEG: baseline files PIL encodes at quality 50/75/95 with 4:4:4, 4:2:2
-  and 4:2:0 chroma, grayscale, optimised Huffman tables, restart markers
-  and odd sizes: equal to PIL bit for bit (the stated bound, JPEG_LEVELS,
-  is 0); progressive, CMYK and 12-bit files raise a `ValueError` naming
-  the variant; the committed smoke pages decode to their recorded
-  hashes;
+- JPEG: baseline and progressive files PIL encodes at quality 50/75/95
+  with 4:4:4, 4:2:2 and 4:2:0 chroma, grayscale, optimised Huffman
+  tables, restart markers and odd sizes, Adobe CMYK, YCCK and RGB files,
+  and progressive files with scans taken out: equal to PIL bit for bit
+  (the stated bound, JPEG_LEVELS, is 0), or, where libjpeg-turbo would
+  block-smooth a progressive file whose scans stop early, a `ValueError`
+  naming the cause; lossless and 12-bit files raise a `ValueError`
+  naming the variant; the committed smoke pages decode to their recorded
+  hashes, and the DocXChain front pages regenerate byte for byte from
+  the smoke's seeded pages (`python tests/test_torch_image_decode.py`
+  writes them);
 - `ops/image.py` `resize_bicubic_u8` against PIL's default
   `Image.resize(size)` (BICUBIC) on seeded RGB pages: downscales,
   upscales, odd sizes and one axis unchanged, bit-equal, where a float
@@ -21,6 +26,7 @@ import hashlib
 import io
 import json
 import pathlib
+import re
 import struct
 import zlib
 
@@ -229,18 +235,130 @@ def test_grayscale_jpeg_matches_pil():
 
 def test_unsupported_jpeg_variants_raise():
     page = jpeg_page(24, 24)
-    progressive = jpeg_bytes(page, progressive=True)
-    with pytest.raises(ValueError, match="progressive JPEG"):
-        tload.decode_image(progressive)
-    buf = io.BytesIO()
-    Image.fromarray(page).convert("CMYK").save(buf, "JPEG")
-    with pytest.raises(ValueError, match="CMYK"):
-        tload.decode_image(buf.getvalue())
+    early = keep_scans(jpeg_bytes(page, progressive=True), (0, 1))
+    with pytest.raises(ValueError, match="progressive JPEG whose scans "
+                                         "leave low AC coefficients"):
+        tload.decode_image(early)
     data = bytearray(jpeg_bytes(page))
     at = data.index(b"\xff\xc0")
     data[at + 4] = 12                               # 12-bit samples
     with pytest.raises(ValueError, match="12-bit"):
         tload.decode_image(bytes(data))
+    data[at + 1], data[at + 4] = 0xC3, 8           # a lossless frame
+    with pytest.raises(ValueError, match="lossless JPEG"):
+        tload.decode_image(bytes(data))
+
+
+def scan_spans(data: bytes):
+    """The byte span of each scan of a JPEG (the DHT segments just
+    before its SOS, the SOS and its entropy data) and the offset of
+    EOI."""
+    pos, start, spans = 2, None, []
+    while True:
+        marker = data[pos + 1]
+        if marker == 0xD9:
+            return spans, pos
+        end = pos + 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if marker == 0xC4 and start is None:
+            start = pos
+        elif marker == 0xDA:
+            end = re.compile(rb"\xff(?![\x00\xd0-\xd7\xff])").search(
+                data, end).start()
+            spans.append((pos if start is None else start, end))
+            start = None
+        elif marker != 0xC4:
+            start = None
+        pos = end
+
+
+def keep_scans(data: bytes, keep) -> bytes:
+    """A progressive JPEG with only the scans `keep` (indices), each with
+    its Huffman tables, then EOI."""
+    spans, _ = scan_spans(data)
+    out = data[:spans[0][0]]
+    for i in keep:
+        out += data[slice(*spans[i])]
+    return out + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("subsampling", [0, 1, 2])
+def test_progressive_jpeg_matches_pil(subsampling):
+    """libjpeg's default progression (10 scans for YCbCr: DC first
+    interleaved, AC first with EOB runs, AC and DC refinement), always
+    with optimised tables, at three qualities, odd sizes and restart
+    intervals counted in blocks and in MCU rows."""
+    for q, (hw, kw) in zip((50, 75, 95, 75, 95), (
+            ((37, 53), {}), ((64, 48), {}),
+            ((17, 9), {"restart_marker_blocks": 3}),
+            ((31, 130), {"restart_marker_rows": 1}), ((1, 1), {}))):
+        page = jpeg_page(*hw, seed=q + subsampling)
+        data = jpeg_bytes(page, quality=q, subsampling=subsampling,
+                          progressive=True, **kw)
+        assert data[data.index(b"\xff\xc2") + 1] == 0xC2
+        got = tload.decode_image(data)
+        diff = np.abs(got.astype(int) - pil_rgb(data)).max()
+        assert diff <= JPEG_LEVELS, (q, hw, kw, diff)
+
+
+def test_progressive_grayscale_jpeg_matches_pil():
+    gray = np.asarray(Image.fromarray(jpeg_page(29, 41, seed=3)).convert("L"))
+    for q, kw in ((50, {}), (95, {"restart_marker_blocks": 5})):
+        data = jpeg_bytes(gray, quality=q, progressive=True, **kw)
+        got = tload.decode_image(data)
+        assert np.abs(got.astype(int) - pil_rgb(data)).max() <= JPEG_LEVELS
+
+
+def test_progressive_scans_that_stop_early():
+    """Without the DC refinement every AC coefficient is still refined:
+    libjpeg-turbo does not smooth, and the decode equals PIL. Cut after
+    the DC and first AC scans, or without the last AC refinement, low AC
+    coefficients stay coarse and libjpeg-turbo block-smooths: the port
+    raises, naming it (its plain decode of such a file differs from
+    PIL's)."""
+    data = jpeg_bytes(jpeg_page(40, 56, seed=9), quality=85,
+                      progressive=True)
+    spans, _ = scan_spans(data)
+    assert len(spans) == 10 and keep_scans(data, range(10)) == data
+    no_dc_refine = keep_scans(data, [i for i in range(10) if i != 6])
+    np.testing.assert_array_equal(tload.decode_image(no_dc_refine),
+                                  pil_rgb(no_dc_refine))
+    for keep in ((0, 1), range(9), (0,)):
+        with pytest.raises(ValueError, match="block-smooths"):
+            tload.decode_image(keep_scans(data, keep))
+
+
+def test_adobe_colour_jpegs_match_pil():
+    """4-component files (PIL reads every one as inverted CMYK, then
+    `cmyk2rgb`): Adobe CMYK (transform 0), YCCK (transform 2, and 1,
+    which libjpeg also takes as YCCK), baseline and progressive, with
+    and without subsampling; 3-component RGB: Adobe transform 0 without
+    JFIF, component ids R, G, B without markers, and Adobe 0 under a JFIF
+    marker (YCbCr, as libjpeg reads it)."""
+    page = Image.fromarray(jpeg_page(29, 41, seed=4))
+    cases = []
+    for kw in ({"quality": 80}, {"quality": 60, "subsampling": 2},
+               {"quality": 90, "progressive": True}):
+        buf = io.BytesIO()
+        page.convert("CMYK").save(buf, "JPEG", **kw)
+        cmyk = bytearray(buf.getvalue())
+        at = cmyk.index(b"Adobe") + 11
+        assert cmyk[at] == 0
+        cases.append(bytes(cmyk))
+        for transform in (2, 1):
+            cmyk[at] = transform
+            cases.append(bytes(cmyk))
+    for kw in ({}, {"progressive": True}):
+        rgb = jpeg_bytes(np.asarray(page), quality=85, keep_rgb=True, **kw)
+        at = rgb.index(b"\xff\xee")
+        n = struct.unpack(">H", rgb[at + 2:at + 4])[0]
+        jfif = (b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01"
+                b"\x00\x00")
+        sof = re.search(rb"\xff[\xc0\xc2]", rgb).start()
+        assert rgb[sof + 10:sof + 19:3] == b"RGB"   # the component ids
+        cases += [rgb, rgb[:at] + rgb[at + 2 + n:], rgb[:2] + jfif + rgb[2:]]
+    for data in cases:
+        np.testing.assert_array_equal(tload.decode_image(data),
+                                      pil_rgb(data))
 
 
 def test_jpeg_bomb_refused_before_decoding():
@@ -262,6 +380,70 @@ def test_committed_smoke_jpegs_decode_to_their_hashes():
         assert hashlib.sha256(pil.tobytes()).hexdigest() == want["sha256"]
         assert list(pil.shape) == want["shape"]
         np.testing.assert_array_equal(tjpeg.decode_jpeg(data), pil)
+
+
+# the DocXChain front's committed page files: name → (page kind, how PIL
+# writes it); PIL's decode of each is recorded in FRONT_RECORD
+FRONT_RECORD = "smoke_front_pages_jpeg.json"
+FRONT_PAGES = {
+    "smoke_doc_page0_prog420_rst_q90.jpg": (
+        "doc", {"quality": 90, "progressive": True,
+                "restart_marker_blocks": 37}),
+    "smoke_doc_page0_prog444_q60.jpg": (
+        "doc", {"quality": 60, "progressive": True, "subsampling": 0}),
+    "smoke_doc_page0_proggray_q60.jpg": (
+        "doc_gray", {"quality": 60, "progressive": True}),
+    "smoke_doc_page0_cmyk_q50.jpg": ("doc_cmyk", {"quality": 50}),
+    "smoke_doc_page0_ycck_q50.jpg": ("doc_ycck", {"quality": 50}),
+    "smoke_table_page0_prog_q90.jpg": (
+        "table", {"quality": 90, "progressive": True}),
+}
+# the ones the port decodes in this test (each other page takes about a
+# second; `chip_smoke.py` decodes all six)
+FRONT_DECODED_IN_TEST = ("smoke_doc_page0_proggray_q60.jpg",
+                      "smoke_doc_page0_ycck_q50.jpg")
+
+
+def front_page_files():
+    """The front's page files made with PIL from `chip_smoke.py`'s seeded
+    page 0 of `document_pages` and of `table_pages` → {name: bytes}. The
+    YCCK page stores the YCbCr of the inverted page with K = 255 (so it
+    decodes to the page) as PIL's Adobe CMYK file, whose transform byte
+    is then set to 2."""
+    import chip_smoke
+    doc = Image.fromarray(chip_smoke.document_pages(1)[0])
+    ycc = np.asarray(Image.fromarray(255 - np.asarray(doc)).convert("YCbCr"))
+    images = {
+        "doc": doc, "table": Image.fromarray(chip_smoke.table_pages(1)[0]),
+        "doc_gray": doc.convert("L"), "doc_cmyk": doc.convert("CMYK"),
+        "doc_ycck": Image.fromarray(np.concatenate(
+            [255 - ycc, np.zeros_like(ycc[..., :1])], -1), "CMYK")}
+    files = {}
+    for name, (kind, kw) in FRONT_PAGES.items():
+        buf = io.BytesIO()
+        images[kind].save(buf, "JPEG", **kw)
+        data = bytearray(buf.getvalue())
+        if kind == "doc_ycck":
+            at = data.index(b"Adobe") + 11
+            assert data[at] == 0
+            data[at] = 2
+        files[name] = bytes(data)
+    return files
+
+
+def test_front_pages_regenerate_and_decode_to_their_hashes():
+    """The committed front pages are PIL's files of the smoke's seeded
+    pages, byte for byte; PIL's decodes have the recorded hashes, and the
+    port's decode equals PIL's (on FRONT_DECODED_IN_TEST)."""
+    record = json.loads((FIXTURES / FRONT_RECORD).read_text())
+    assert set(record) == set(FRONT_PAGES)
+    for name, data in front_page_files().items():
+        assert (FIXTURES / name).read_bytes() == data, name
+        pil = pil_rgb(data)
+        assert hashlib.sha256(pil.tobytes()).hexdigest() == \
+            record[name]["sha256"], name
+        if name in FRONT_DECODED_IN_TEST:
+            np.testing.assert_array_equal(tjpeg.decode_jpeg(data), pil)
 
 
 def seeded_page(h, w, seed):
@@ -306,3 +488,17 @@ def test_float_bicubic_is_not_pil():
     assert (flt != want).mean() > 0.01
     np.testing.assert_array_equal(
         resize_bicubic_u8(page, (640, 640)).numpy(), want)
+
+
+if __name__ == "__main__":          # writes the front pages and record
+    record = {}
+    for name, data in front_page_files().items():
+        (FIXTURES / name).write_bytes(data)
+        pil = pil_rgb(data)
+        record[name] = {
+            "sha256": hashlib.sha256(pil.tobytes()).hexdigest(),
+            "shape": list(pil.shape), "bytes": len(data),
+            "source": f"chip_smoke {FRONT_PAGES[name][0]} page 0, PIL "
+                      f"JPEG {FRONT_PAGES[name][1]}"}
+    (FIXTURES / FRONT_RECORD).write_text(json.dumps(record, indent=1)
+                                         + "\n")

@@ -1,6 +1,6 @@
 """The port imports neither JAX nor the JAX package, nor `regex`,
-`safetensors`, PIL, cv2, lxml, `Levenshtein` or `lmdb` (the card's machine
-has none of them), and importing it builds no kernel: every module of
+`safetensors`, PIL, cv2, lxml, `Levenshtein`, `lmdb` or `onnxruntime` (the
+card's machine has none of them), and importing it builds no kernel: every module of
 `advancedliteratemachinery_tpu_torch` and the module-level code of
 `chip_smoke.py` and the root's measuring scripts (`k4_repeats.py`,
 `kernel_ab.py`, `collect_profile.py`) import in a process where all of
@@ -36,20 +36,21 @@ def test_port_imports_without_jax():
               "eval.teds", "eval.kie_metrics", "eval.ccocr_harness",
               "eval.det_map", "eval.lore_metrics", "ops.nms", "ops.image",
               "data.pubtabnet", "models.lister_baselines",
-              "utils.profiling", "core.registry", "codecs.seq_codec"):
+              "utils.profiling", "core.registry", "codecs.seq_codec",
+              "utils.visualization", "pipelines.latex_ocr"):
         assert f"{PKG}.{m}" in modules
     code = textwrap.dedent(f"""
         import importlib, sys
         for name in ("jax", "jaxlib", "flax", "advancedliteratemachinery_tpu",
                      "regex", "safetensors", "PIL", "cv2", "lxml",
-                     "Levenshtein", "lmdb"):
+                     "Levenshtein", "lmdb", "onnxruntime"):
             sys.modules[name] = None          # any import of them raises
         for m in {modules!r}:
             importlib.import_module(m)
         from {PKG} import cli
         for cmd in ("eval", "create-lmdb", "ccocr-eval", "ccocr-collect",
                     "eval-det", "models", "vie", "table-html",
-                    "table-eval"):
+                    "table-eval", "read", "structurize", "table"):
             try:
                 cli.main([cmd, "--help"])
             except SystemExit as e:
@@ -66,7 +67,7 @@ def test_port_imports_without_jax():
         assert not any(_kernels.LAUNCHES.values())
         assert not any(m.startswith(("jax", "flax", "regex", "safetensors",
                                      "PIL", "cv2", "lxml", "Levenshtein",
-                                     "lmdb"))
+                                     "lmdb", "onnxruntime"))
                        and sys.modules[m] for m in sys.modules)
         print("ok", len({modules!r}))
     """)

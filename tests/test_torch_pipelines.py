@@ -10,12 +10,18 @@ image ops, engine/http_serving.py, cli.py) on the CPU.
   `equation` branch and `cells_to_html` must give equal outputs;
 - `load_image` against PIL on seeded PNGs of each colour type and all
   five row filters;
-- the HTTP routes and the CLI commands with stub engines."""
+- the HTTP routes and the CLI commands with stub engines: `--visualize`
+  writes a PNG equal to the port's and the JAX module's drawing of the
+  printed result, and `structurize --formula-onnx` fails with the JAX
+  module's message without onnxruntime and, with a fake one, builds the
+  sessions and never calls them (the whole-page layout has no
+  "equation" region)."""
 
 import base64
 import io
 import json
 import struct
+import sys
 import urllib.error
 import urllib.request
 import zlib
@@ -607,12 +613,87 @@ def test_cli_recognize(stub_cli, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["table", "p.png", "--ckpt", "d"], "--torch-ckpt"),
-    (["read", "p.png", "--visualize", "o.png"], "visualization.py"),
-    (["structurize", "p.png", "--formula-onnx", "d"], "latex_ocr")])
+    (["table", "p.png", "--ckpt", "d"], "--torch-ckpt")])
 def test_cli_refuses_unported_options(stub_cli, argv, names):
     with pytest.raises(SystemExit, match=names):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("cmd,draw", [("read", "draw_reading"),
+                                      ("structurize", "draw_structurization"),
+                                      ("table", "draw_table")])
+def test_cli_visualize_writes_the_drawing(stub_cli, tmp_path, capsys, cmd,
+                                          draw):
+    """`--visualize OUT.png` writes the result drawn on the decoded page:
+    the PNG equals the port's drawing of the printed JSON, and equals the
+    JAX CLI's drawing (cv2) of the same result."""
+    import advancedliteratemachinery_tpu.utils.visualization as jvis
+    from advancedliteratemachinery_tpu_torch.utils import (
+        visualization as tvis)
+    page = seeded_page(16)
+    path, out_png = str(tmp_path / "page.png"), str(tmp_path / "o.png")
+    Image.fromarray(page).save(path)
+    assert cli.main([cmd, path, "--device", "cpu", "--visualize",
+                     out_png]) == 0
+    out = json.loads(capsys.readouterr().out)
+    drawn = tload.load_image(out_png)
+    np.testing.assert_array_equal(drawn, getattr(tvis, draw)(page, out))
+    np.testing.assert_array_equal(drawn, getattr(jvis, draw)(page, out))
+    assert (drawn != page).any()
+    with pytest.raises(ValueError, match="PNG only"):
+        cli.main([cmd, path, "--device", "cpu", "--visualize",
+                  str(tmp_path / "o.jpg")])
+
+
+def onnx_dir(tmp_path):
+    d = tmp_path / "latex"
+    d.mkdir()
+    for name in ("encoder_model.onnx", "decoder_model.onnx"):
+        (d / name).write_bytes(b"onnx")
+    (d / "tokenizer.json").write_text(json.dumps(
+        {"model": {"vocab": {"[PAD]": 0, "[BOS]": 1, "[EOS]": 2, "x": 3}}}))
+    return str(d)
+
+
+def test_cli_formula_onnx(stub_cli, tmp_path, capsys, monkeypatch):
+    """`structurize --formula-onnx DIR`: without onnxruntime the command
+    fails with the JAX module's message; with an `onnxruntime` module the
+    sessions are built, and, as in the JAX CLI, the whole-page layout is
+    one "plain text" region, so the formula model never runs and the
+    JSON is the one without it."""
+    import types
+    page = seeded_page(17)
+    path = str(tmp_path / "page.png")
+    Image.fromarray(page).save(path)
+    d = onnx_dir(tmp_path)
+    monkeypatch.setitem(sys.modules, "onnxruntime", None)
+    with pytest.raises(ImportError, match="needs onnxruntime, which is "
+                                          "not installed"):
+        cli.main(["structurize", path, "--device", "cpu",
+                  "--formula-onnx", d])
+    built, ran = [], []
+
+    class Session:
+        def __init__(self, model, providers):
+            built.append((model.rsplit("/", 1)[-1], providers))
+
+        def get_inputs(self):
+            return []
+
+        def run(self, outputs, feeds):
+            ran.append(feeds)
+
+    monkeypatch.setitem(sys.modules, "onnxruntime", types.SimpleNamespace(
+        InferenceSession=Session))
+    assert cli.main(["structurize", path, "--device", "cpu",
+                     "--formula-onnx", d]) == 0
+    with_formula = json.loads(capsys.readouterr().out)
+    assert built == [("encoder_model.onnx", ["CPUExecutionProvider"]),
+                     ("decoder_model.onnx", ["CPUExecutionProvider"])]
+    assert ran == []
+    assert cli.main(["structurize", path, "--device", "cpu"]) == 0
+    assert with_formula == json.loads(capsys.readouterr().out)
+    assert [r["category_name"] for r in with_formula] == ["plain text"]
 
 
 @pytest.mark.parametrize("cmd", ["recognize", "read", "structurize",

@@ -230,9 +230,13 @@ def test_dataset_items_match_jax(tmp_path):
 
 
 def test_dataset_names_formats_it_cannot_decode(tmp_path):
+    """A progressive JPEG cut after its first two scans (which
+    libjpeg-turbo would block-smooth), BMP and GIF."""
+    from test_torch_image_decode import keep_scans
     files = sample_files(np.random.default_rng(6))
-    path = dataset_lmdb(tmp_path, [files["jpg_progressive"], files["bmp"],
-                                   files["gif"]], ["a", "b", "c"])
+    early = keep_scans(files["jpg_progressive"], (0, 1))
+    path = dataset_lmdb(tmp_path, [early, files["bmp"], files["gif"]],
+                        ["a", "b", "c"])
     ds = tds.LmdbStrDataset(path)
     for i, word in enumerate(("(?i)progressive", "BMP", "GIF")):
         with pytest.raises(ValueError, match=word):
