@@ -32,7 +32,8 @@ Orbax checkpoints). `--visualize OUT.png` on `read`, `structurize` and
 CLI, its whole-page layout is one "plain text" region, so the formula
 model is loaded but reaches no region. Pages and crops are PNG (any bit
 depth, interlaced or not), JPEG (baseline or progressive; gray, YCbCr,
-RGB, CMYK or YCCK) or `.npy` files (`pipelines/file_loading.py`).
+RGB, CMYK or YCCK), BMP, GIF, TIFF (strips or tiles; none, PackBits,
+LZW, Deflate or CCITT fax) or `.npy` files (`pipelines/file_loading.py`).
 
 `read`, `structurize`, `table` and `convert` detect text as the JAX CLI
 does: DB, then the host `extract_boxes` on its probability map

@@ -16,8 +16,11 @@ need.
 
 `create_str_lmdb` checks each image as the JAX one does with PIL's
 `Image.open(...).verify()`, without PIL (`image_check`): PNG's chunks and
-their CRCs, JPEG's markers up to the start of the scan; neither decodes
-pixels, so a progressive JPEG is kept as PIL keeps it.
+their CRCs, JPEG's markers up to the start of the scan; BMP's header and
+palette, GIF's blocks up to the first frame's descriptor and TIFF's
+first IFD as PIL's plugins open them (their `verify()` checks nothing
+more). None decodes pixels, so a progressive JPEG is kept as PIL keeps
+it; WebP is checked by its signature alone.
 """
 
 from __future__ import annotations
@@ -27,8 +30,12 @@ import re
 import struct
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from advancedliteratemachinery_tpu_torch.pipelines.bmp import check_bmp
 from advancedliteratemachinery_tpu_torch.pipelines.file_loading import (
-    PNG_SIGNATURE, other_format)
+    BMP_SIGNATURE, GIF_SIGNATURES, PNG_SIGNATURE, TIFF_SIGNATURES,
+    other_format)
+from advancedliteratemachinery_tpu_torch.pipelines.gif import check_gif
+from advancedliteratemachinery_tpu_torch.pipelines.tiff import check_tiff
 
 PAGE = 4096
 MAGIC = 0xBEEFC0DE
@@ -337,32 +344,45 @@ def _check_jpeg(data: bytes) -> Tuple[int, int]:
 
 
 def image_size(data: bytes) -> Tuple[int, int]:
-    """(height, width) of a PNG or JPEG file's bytes, read from its header
-    as PIL's `Image.open(...).size` reads it (the PNG IHDR, the JPEG frame
-    header), after the checks of `image_check`; another format raises a
-    `ValueError` naming it."""
+    """(height, width) of an image file's bytes, read from its header as
+    PIL's `Image.open(...).size` reads it (the PNG IHDR, the JPEG frame
+    header, the BMP header, the GIF screen and first frame, the TIFF's
+    first IFD with its `Orientation`), after the checks of `image_check`;
+    another format raises a `ValueError` naming it."""
     if data.startswith(PNG_SIGNATURE):
         w, h = _check_png(data)
     elif data.startswith(b"\xff\xd8\xff"):
         w, h = _check_jpeg(data)
+    elif data.startswith(BMP_SIGNATURE):
+        w, h = check_bmp(data)
+    elif data.startswith(GIF_SIGNATURES):
+        w, h = check_gif(data)
+    elif data.startswith(TIFF_SIGNATURES):
+        w, h = check_tiff(data)
     else:
         kind = other_format(data) or "unrecognised"
-        raise ValueError(f"{kind} image: the port reads the size of PNG "
-                         f"and JPEG files")
+        raise ValueError(f"{kind} image: the port reads the size of PNG, "
+                         f"JPEG, BMP, GIF and TIFF files")
     return h, w
 
 
 def image_check(data: bytes) -> Optional[str]:
     """None when PIL's `Image.open(BytesIO(data)).verify()` would pass,
-    else the reason it would not. PNG and JPEG are checked as PIL's
-    plugins check them; BMP, GIF, TIFF and WebP by their signature alone
-    (a truncated one is kept where PIL refuses it); any other bytes are an
+    else the reason it would not. PNG, JPEG, BMP, GIF and TIFF are checked
+    as PIL's plugins check them; WebP by its signature alone (a truncated
+    one is kept where PIL refuses it); any other bytes are an
     unidentified image."""
     try:
         if data.startswith(PNG_SIGNATURE):
             _check_png(data)
         elif data.startswith(b"\xff\xd8\xff"):
             _check_jpeg(data)
+        elif data.startswith(BMP_SIGNATURE):
+            check_bmp(data)
+        elif data.startswith(GIF_SIGNATURES):
+            check_gif(data)
+        elif data.startswith(TIFF_SIGNATURES):
+            check_tiff(data)
         elif other_format(data) is None:
             raise ValueError("cannot identify image file")
     except ValueError as e:

@@ -33,10 +33,10 @@ Evaluation: `decode_table_outputs` rebuilds the <table> HTML
 (<thead>/<tbody> restored from the header bits) and `eval.teds.TEDS`
 scores it — structure_only=True is the paper's S-TEDS.
 
-The page image's size is read from its file header (the PNG IHDR or the
-JPEG frame header of any JPEG process, `data/lmdb_writer.py`
-`image_size`), where the JAX module opens it with PIL; another format
-raises a `ValueError` naming it.
+The page image's size is read from its file header (the PNG IHDR, the
+JPEG frame header of any JPEG process, or the BMP, GIF or TIFF header;
+`data/lmdb_writer.py` `image_size`), where the JAX module opens it with
+PIL; another format raises a `ValueError` naming it.
 """
 
 from __future__ import annotations

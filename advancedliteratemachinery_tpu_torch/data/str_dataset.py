@@ -10,8 +10,8 @@ Parity targets (reference OCR/MGP-STR/dataset.py):
   mix, wrap-around iteration (:95 get_batch).
 
 The card's machine has no PIL or cv2. Samples decode with
-`pipelines/file_loading.py` `decode_image` (PNG of every kind, baseline
-JPEG) to what PIL's `convert("RGB")` gives, and `rgb=False` takes PIL's
+`pipelines/file_loading.py` `decode_image` (PNG, JPEG, BMP, GIF, TIFF)
+to what PIL's `convert("RGB")` gives, and `rgb=False` takes PIL's
 `convert("L")`: the ITU-R 601 luma in PIL's fixed point, which returns a
 gray, gray + alpha or 16-bit gray PNG's own level and looks a palette
 image up through its palette. A format the port does not decode raises

@@ -13,8 +13,8 @@ Endpoints:
                           "det_score", "quad"}, ...]} (detector + batched
                           recognition)
 
-Bodies: raw image bytes (PNG, baseline JPEG or `.npy`, told apart by
-their magic bytes and decoded by `pipelines/file_loading.py` without
+Bodies: raw image bytes (PNG, JPEG, BMP, GIF, TIFF or `.npy`, told apart
+by their magic bytes and decoded by `pipelines/file_loading.py` without
 PIL), or JSON `{"image_b64": "..."}`,
 of at most MAX_BODY_BYTES (a larger one is refused, 413, unread). Word
 crops go into the batcher as they were decoded; each batch goes up to the

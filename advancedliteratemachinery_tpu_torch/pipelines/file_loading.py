@@ -2,8 +2,9 @@
 (port of `advancedliteratemachinery_tpu/pipelines/file_loading.py`;
 reference Applications/DocXChain/modules/file_loading.py:22).
 
-The card's machine has no PIL, so `load_image` decodes three formats
-itself, each as PIL's `Image.open(...).convert("RGB")` gives it:
+The card's machine has no PIL, so `load_image` decodes the page formats
+itself, each as PIL's `Image.open(...).convert("RGB")` gives it (Pillow
+12.1 with libtiff 4.7 and libjpeg-turbo 3.1), told apart by signature:
 
 - PNG of every bit depth and colour type (gray, gray + alpha, RGB, RGBA
   and palette; 1, 2, 4, 8 and 16 bits), plain or Adam7-interlaced,
@@ -11,17 +12,26 @@ itself, each as PIL's `Image.open(...).convert("RGB")` gives it:
   dropped, gray is replicated, palettes looked up, 1-, 2- and 4-bit gray
   scaled to 8 bits; 16-bit gray is PIL's mode `I;16`, which
   `convert("RGB")` clips at 255, and 16-bit colour keeps its high byte;
-- JPEG, baseline or progressive, gray, YCbCr, Adobe RGB, CMYK and YCCK
-  (`pipelines/jpeg.py`); a progressive file that libjpeg-turbo would
-  block-smooth, and lossless, hierarchical, arithmetic-coded and 12-bit
-  files raise `ValueError` naming the variant;
+- JPEG, baseline or progressive (block-smoothed as libjpeg-turbo smooths
+  a file whose scans leave low AC coefficients coarse), gray, YCbCr,
+  Adobe RGB, CMYK and YCCK (`pipelines/jpeg.py`); lossless,
+  hierarchical, arithmetic-coded and 12-bit files raise `ValueError`
+  naming the variant;
+- BMP (`pipelines/bmp.py`): every header PIL reads, 1-32 bits, bit
+  fields, RLE4 and RLE8;
+- GIF (`pipelines/gif.py`): the first frame, on its logical screen;
+- TIFF (`pipelines/tiff.py`): the first page; uncompressed, PackBits,
+  LZW, Deflate and CCITT fax (`pipelines/ccitt.py`) strips or tiles, with
+  the horizontal predictor, planar or not; gray, palette, RGB and CMYK;
+  JPEG-in-TIFF and YCbCr raise `ValueError` naming them;
 - `.npy` arrays (uint8 [H, W], [H, W, 3] or [H, W, 4]).
 
-Any other format raises `ValueError`. As PIL refuses a decompression bomb,
-both decoders refuse an image of more than MAX_IMAGE_PIXELS pixels before
-they inflate anything, and `decode_png` inflates no more than the
-image's rows hold. PDF rasterization takes whichever of PyMuPDF (`fitz`)
-and `pdf2image` is present, as in the JAX package.
+WebP and any other format raise `ValueError`. As PIL refuses a
+decompression bomb, every decoder refuses an image of more than
+MAX_IMAGE_PIXELS pixels before it inflates anything, and `decode_png`
+inflates no more than the image's rows hold. PDF rasterization takes
+whichever of PyMuPDF (`fitz`) and `pdf2image` is present, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -34,16 +44,20 @@ from typing import List, Optional
 import numpy as np
 from numpy.lib.stride_tricks import as_strided
 
+from advancedliteratemachinery_tpu_torch.pipelines.bmp import decode_bmp
+from advancedliteratemachinery_tpu_torch.pipelines.gif import decode_gif
 from advancedliteratemachinery_tpu_torch.pipelines.jpeg import (
     MAX_IMAGE_PIXELS, decode_jpeg)
+from advancedliteratemachinery_tpu_torch.pipelines.tiff import decode_tiff
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 JPEG_SIGNATURE = b"\xff\xd8"
 NPY_MAGIC = b"\x93NUMPY"
-# formats PIL reads that the port does not decode yet, by their signatures
-_OTHER_FORMATS = (("BMP", (b"BM",)), ("GIF", (b"GIF87a", b"GIF89a")),
-                  ("TIFF", (b"II*\x00", b"MM\x00*", b"II+\x00",
-                            b"MM\x00+")))
+BMP_SIGNATURE = b"BM"
+GIF_SIGNATURES = (b"GIF87a", b"GIF89a")
+# PIL's TIFF prefixes (byte order and 42; BigTIFF's 43)
+TIFF_SIGNATURES = (b"II*\x00", b"MM\x00*", b"II\x00*", b"MM*\x00",
+                   b"II+\x00", b"MM\x00+")
 # colour type → (samples a pixel, the bit depths PNG allows)
 _PNG_TYPES = {0: (1, (1, 2, 4, 8, 16)), 2: (3, (8, 16)), 3: (1, (1, 2, 4, 8)),
               4: (2, (8, 16)), 6: (4, (8, 16))}
@@ -238,27 +252,32 @@ def _from_npy(data: bytes) -> np.ndarray:
 
 
 def other_format(data: bytes) -> Optional[str]:
-    """The name of a format PIL reads that the port does not decode (BMP,
-    GIF, TIFF, WebP), told by its signature, else None."""
+    """The name of a format PIL reads that the port does not decode
+    (WebP), told by its signature, else None."""
     if data[:4] == b"RIFF" and data[8:12] == b"WEBP":
         return "WebP"
-    return next((name for name, sigs in _OTHER_FORMATS
-                 if any(data.startswith(sig) for sig in sigs)), None)
+    return None
 
 
 def decode_image(data: bytes) -> np.ndarray:
-    """Image file bytes (PNG, JPEG or `.npy`), told apart by their magic
-    bytes → uint8 RGB [H, W, 3]."""
+    """Image file bytes (PNG, JPEG, BMP, GIF, TIFF or `.npy`), told apart
+    by their magic bytes → uint8 RGB [H, W, 3]."""
     if data.startswith(PNG_SIGNATURE):
         return decode_png(data)
     if data.startswith(JPEG_SIGNATURE):
         return decode_jpeg(data)
     if data.startswith(NPY_MAGIC):
         return _from_npy(data)
+    if data.startswith(BMP_SIGNATURE):
+        return decode_bmp(data)
+    if data.startswith(GIF_SIGNATURES):
+        return decode_gif(data)
+    if data.startswith(TIFF_SIGNATURES):
+        return decode_tiff(data)
     kind = other_format(data) or "unrecognised"
     raise ValueError(f"{kind} image: the port decodes PNG, JPEG (baseline "
-                     f"and progressive; gray, YCbCr, RGB, CMYK and YCCK) "
-                     f"and .npy; TIFF, BMP, WebP and GIF are queued")
+                     f"and progressive; gray, YCbCr, RGB, CMYK and YCCK), "
+                     f"BMP, GIF, TIFF and .npy; WebP is queued")
 
 
 def load_image(path: str) -> np.ndarray:

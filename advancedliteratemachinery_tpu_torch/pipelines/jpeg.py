@@ -14,10 +14,13 @@
   first and refinement scans (interleaved or not), AC first scans with
   EOB runs, and AC refinement with its correction bits (ITU T.81
   G.1.2.3). A file whose scans leave any of the first ten AC
-  coefficients unrefined raises `ValueError`: libjpeg-turbo would
-  block-smooth it (`jdcoefct.c` `decompress_smooth_data`), which is not
-  reproduced. Files written with libjpeg's default progression (PIL's
-  `progressive=True`) refine every coefficient.
+  coefficients of a component not fully refined is block-smoothed as
+  libjpeg-turbo 3.1 smooths it (`jdcoefct.c` `smoothing_ok`,
+  `decompress_smooth_data`): each such coefficient still zero is
+  estimated from the 5x5 neighbourhood of quantised DC values (with the
+  DC itself interpolated where no AC data came), edge blocks repeating
+  their last row or column. Files written with libjpeg's default
+  progression (PIL's `progressive=True`) refine every coefficient.
 - Lossless and hierarchical frames, arithmetic coding and 12-bit samples
   raise `ValueError` naming the variant: they are queued, and nothing
   falls back.
@@ -302,6 +305,9 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
 # first SAVED_COEFS coefficients' precision and these quantisers
 _SMOOTH_COEFS = 10
 _SMOOTH_QUANT = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
+# block smoothing on (libjpeg-turbo's default, PIL's); off only in the
+# control that shows a smoothed file's plain decode misses PIL's
+_SMOOTHING = True
 
 
 def _read_frame(data: bytes):
@@ -644,8 +650,8 @@ def _ac_refine(win, blocks, lut, ss, se, al, coef):
 
 def _progressive_coefs(scans, comps, grids, first, H, W, hmax, vmax,
                        quant):
-    """Progressive scans → int32 [blocks, 64] coefficients, natural order.
-    Raises where libjpeg-turbo would smooth the blocks instead."""
+    """Progressive scans → int32 [blocks, 64] coefficients, natural order,
+    block-smoothed where libjpeg-turbo smooths them."""
     coef = np.zeros((int(first[-1]), 64), np.int32)        # zigzag order
     coef_bits = np.full((len(comps), 64), -1)
     for scan in scans:
@@ -674,17 +680,143 @@ def _progressive_coefs(scans, comps, grids, first, H, W, hmax, vmax,
                 _ac_refine(win, blocks[a:b], lut, ss, se, al, coef)
         for ci, _, _ in members:
             coef_bits[ci, ss:se + 1] = al
-    for ci, (_, _, _, tq) in enumerate(comps):
-        q = quant.get(tq)
-        if (coef_bits[ci, 0] >= 0 and q is not None
-                and q[list(_SMOOTH_QUANT)].all()
-                and (coef_bits[ci, 1:_SMOOTH_COEFS] != 0).any()):
-            raise _unsupported(
-                "progressive JPEG whose scans leave low AC coefficients "
-                "unrefined (libjpeg-turbo block-smooths such a file)")
     natural = np.empty_like(coef)
     natural[:, ZIGZAG] = coef
+    if _smoothing_ok(comps, quant, coef_bits):
+        _block_smooth(natural, coef_bits, comps, grids, first, H, W, hmax,
+                      vmax, quant)
     return natural
+
+
+def _smoothing_ok(comps, quant, coef_bits) -> bool:
+    """`jdcoefct.c` `smoothing_ok`: every component's DC coded and its DC
+    and first nine AC quantisers nonzero, and some component's first
+    nine AC coefficients not all refined to full precision."""
+    if not _SMOOTHING:
+        return False
+    for ci, (_, _, _, tq) in enumerate(comps):
+        q = quant.get(tq)
+        if (q is None or coef_bits[ci, 0] < 0
+                or not q[list(_SMOOTH_QUANT)].all()):
+            return False
+    return bool((coef_bits[:, 1:_SMOOTH_COEFS] != 0).any())
+
+
+# `decompress_smooth_data`'s estimates: natural position → the
+# weights of the 5x5 neighbourhood of quantised DC values (rows
+# -2..2 × columns -2..2) when some AC data is known (None: not
+# estimated then), and when none is (with the DC interpolated too)
+_SMOOTH_TAPS = {
+    1: (  # AC01
+        [[0, 0, 0, 0, 0], [0, 0, 0, 0, 0], [-7, 50, 0, -50, 7],
+         [0, 0, 0, 0, 0], [0, 0, 0, 0, 0]],
+        [[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+         [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]]),
+    8: (  # AC10
+        [[0, 0, -7, 0, 0], [0, 0, 50, 0, 0], [0, 0, 0, 0, 0],
+         [0, 0, -50, 0, 0], [0, 0, 7, 0, 0]],
+        [[-1, -3, -3, -3, -1], [-1, 13, 38, 13, -1], [0, 0, 0, 0, 0],
+         [1, -13, -38, -13, 1], [1, 3, 3, 3, 1]]),
+    16: (  # AC20
+        [[0, 0, -1, 0, 0], [0, 0, 13, 0, 0], [0, 0, -24, 0, 0],
+         [0, 0, 13, 0, 0], [0, 0, -1, 0, 0]],
+        [[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+         [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]]),
+    9: (  # AC11
+        [[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0, 0, 0, 0, 0],
+         [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]],
+        [[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0, 0, 0, 0, 0],
+         [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]]),
+    2: (  # AC02
+        [[0, 0, 0, 0, 0], [0, 0, 0, 0, 0], [-1, 13, -24, 13, -1],
+         [0, 0, 0, 0, 0], [0, 0, 0, 0, 0]],
+        [[0, 0, 0, 0, 0], [0, 2, -5, 2, 0], [1, 7, -14, 7, 1],
+         [0, 2, -5, 2, 0], [0, 0, 0, 0, 0]]),
+    3: (  # AC03
+        None,
+        [[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, 2, 0, -2, 0],
+         [0, 1, 0, -1, 0], [0, 0, 0, 0, 0]]),
+    10: (  # AC12
+        None,
+        [[0, 0, 0, 0, 0], [0, 1, -3, 1, 0], [0, 0, 0, 0, 0],
+         [0, -1, 3, -1, 0], [0, 0, 0, 0, 0]]),
+    17: (  # AC21
+        None,
+        [[0, 0, 0, 0, 0], [0, 1, 0, -1, 0], [0, -3, 0, 3, 0],
+         [0, 1, 0, -1, 0], [0, 0, 0, 0, 0]]),
+    24: (  # AC30
+        None,
+        [[0, 0, 0, 0, 0], [0, 1, 2, 1, 0], [0, 0, 0, 0, 0],
+         [0, -1, -2, -1, 0], [0, 0, 0, 0, 0]]),
+}
+_SMOOTH_DC = [[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6],
+              [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+              [-2, -6, -8, -6, -2]]
+
+
+def _neighbour_rows(height: int, v: int, total: int) -> np.ndarray:
+    """For each block row r < height of a component (v block rows an
+    iMCU row, `total` iMCU rows) → the rows `decompress_smooth_data`
+    reads as r-2 .. r+2: its clamps count rows on the padded grid, and
+    in the last iMCU row by that row's own count of block rows."""
+    out = np.zeros((height, 5), np.int64)
+    for r in range(height):
+        R, b = divmod(r, v)
+        if R < total - 1:
+            rows, at, n = v, r, v * total
+        else:
+            rows = height % v or v
+            at, n = R * rows + b, rows * total
+        prev = r - 1 if at > 0 else r
+        prev2 = r - 2 if at > 1 else prev
+        nxt = r + 1 if at < n - 1 else r
+        nxt2 = r + 2 if at < n - 2 else nxt
+        out[r] = (prev2, prev, r, nxt, nxt2)
+    return out
+
+
+def _block_smooth(natural, coef_bits, comps, grids, first, H, W, hmax,
+                  vmax, quant):
+    """libjpeg-turbo's `decompress_smooth_data` on the quantised blocks of
+    every component, in place: a zero coefficient among the first nine
+    AC ones whose precision is not full (`coef_bits` not 0) is estimated
+    from the 5x5 neighbourhood of quantised DC values, clamped below 2^Al
+    when Al > 0; a component with no AC data at all also has its DC
+    interpolated. Edge blocks repeat their row's or column's last DC."""
+    total = _ceil_div(H, 8 * vmax)
+    for ci, (_, h, v, tq) in enumerate(comps):
+        by, bx = grids[ci]
+        height = _ceil_div(_ceil_div(H * v, vmax), 8)
+        width = _ceil_div(_ceil_div(W * h, hmax), 8)
+        q = quant[tq].astype(np.int64)
+        blocks = natural[first[ci]:first[ci + 1]].reshape(by, bx, 64)
+        dc = blocks[..., 0].astype(np.int64)
+        rows = _neighbour_rows(height, v, total)
+        cols = np.clip(np.arange(width)[:, None] + np.arange(-2, 3), 0,
+                       width - 1)
+        grid = dc[rows[:, :, None, None], cols[None, None, :, :]]
+        grid = grid.transpose(0, 2, 1, 3)          # [height, width, 5, 5]
+        bits = coef_bits[ci]
+        change_dc = bool((bits[1:_SMOOTH_COEFS] == -1).all())
+        work = blocks[:height, :width].astype(np.int64)
+        for k, (pos, (taps, dc_taps)) in enumerate(_SMOOTH_TAPS.items()):
+            al = int(bits[k + 1])
+            if al == 0 or (taps is None and not change_dc):
+                continue
+            weights = np.asarray(dc_taps if change_dc else taps, np.int64)
+            num = q[0] * (grid * weights).sum((-2, -1))
+            qk = int(q[pos])
+            pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+            if al > 0:
+                pred = np.minimum(pred, (1 << al) - 1)
+            pred = np.where(num >= 0, pred, -pred)
+            work[..., pos] = np.where(work[..., pos] == 0, pred,
+                                      work[..., pos])
+        if change_dc:
+            num = q[0] * (grid * np.asarray(_SMOOTH_DC)).sum((-2, -1))
+            pred = ((q[0] << 7) + np.abs(num)) // (q[0] << 8)
+            work[..., 0] = np.where(num >= 0, pred, -pred)
+        blocks[:height, :width] = work
 
 
 def _cmyk_rgb(c, m, y, k) -> np.ndarray:

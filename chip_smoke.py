@@ -4877,7 +4877,448 @@ def front_decodes(docs0, tables0, tmp):
     emit({"phase": "docxchain_front_decode", **rec})
     require(all(equal.values()) and control != "passed the gate",
             f"front pages do not decode to PIL's decodes: {rec}")
-    return pages
+    return pages, {k: ms[k] for k in ("doc.png", "table.png",
+                                      "smoke_doc_page0_q90.jpg",
+                                      "smoke_table_page0_q90.jpg")}
+
+
+# page files of the formats PIL reads beyond PNG and JPEG (the card's
+# machine has no PIL): TIFF, BMP and GIF written here from the seeded doc
+# and table pages, each with the array PIL decodes it to
+# (`tests/test_torch_image_decode.py` holds PIL to it); a block-smoothed
+# progressive page cut from FRONT_DOCS[0]; and a committed CCITT G4 TIFF
+# of the thresholded doc page, PIL's decode of each recorded by its hash
+FORMAT_RECORD = "smoke_front_formats.json"
+FORMAT_G4 = "smoke_doc_page0_g4.tif"
+FORMAT_CUT = "smoke_doc_page0_prog420_rst_q90_dc_ac1.jpg"
+FORMAT_CUT_SCANS = (0, 1)      # its DC and first AC scans
+FORMAT_TILE = 240              # tile edge: 1024x768 pages pad their last
+FORMAT_LEVELS = 6              # palette page: a 6x6x6 colour cube
+
+
+def tiff_lzw(data: bytes) -> bytes:
+    """TIFF LZW (MSB-first codes, the early change, a clear at 4094)."""
+    out, acc, nbits, size = bytearray(), 0, 0, 9
+
+    def put(code):
+        nonlocal acc, nbits
+        acc = (acc << size) | code
+        nbits += size
+        while nbits >= 8:
+            nbits -= 8
+            out.append((acc >> nbits) & 255)
+        acc &= (1 << nbits) - 1
+
+    fresh = {bytes((i,)): i for i in range(256)}
+    table, nxt, w = dict(fresh), 258, b""
+    put(256)
+    for byte in data:
+        wc = w + bytes((byte,))
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = nxt
+        nxt += 1
+        if nxt + 1 > 1 << size and size < 12:
+            size += 1
+        if nxt >= 4094:
+            put(256)
+            table, nxt, size = dict(fresh), 258, 9
+        w = bytes((byte,))
+    if w:
+        put(table[w])
+        nxt += 1
+        if nxt + 1 > 1 << size and size < 12:
+            size += 1
+    put(257)
+    if nbits:
+        out.append((acc << (8 - nbits)) & 255)
+    return bytes(out)
+
+
+def packbits(data: bytes) -> bytes:
+    """PackBits: runs of 2-128 equal bytes, literals of up to 128."""
+    a = np.frombuffer(data, np.uint8)
+    starts = np.flatnonzero(np.r_[True, a[1:] != a[:-1]])
+    lengths = np.diff(np.r_[starts, len(a)])
+    out, lit = bytearray(), bytearray()
+
+    def flush():
+        for i in range(0, len(lit), 128):
+            chunk = lit[i:i + 128]
+            out.append(len(chunk) - 1)
+            out.extend(chunk)
+        lit.clear()
+
+    for start, n in zip(starts.tolist(), lengths.tolist()):
+        if n == 1:
+            lit.append(data[start])
+            continue
+        flush()
+        while n:
+            k = min(n, 128)
+            if k == 1:
+                lit.append(data[start])
+            else:
+                out += bytes((257 - k, data[start]))
+            n -= k
+    flush()
+    return bytes(out)
+
+
+TIFF_REVERSE = np.array([int(f"{i:08b}"[::-1], 2) for i in range(256)],
+                        np.uint8)
+
+
+def tiff_bytes(px, bps, photometric, comp=1, order="<", tile=None, rps=None,
+               planar=1, predictor=1, fill=1, extra=(), colormap=None,
+               tags=None) -> bytes:
+    """A TIFF of samples `px` [H, W, spp]: strips of `rps` rows (the last
+    one short) or padded tiles `tile` (width, height); compression 1
+    (none), 5 (LZW), 8 or 32946 (Deflate) or 32773 (PackBits); planar
+    configuration 2 writes plane by plane; predictor 2 takes horizontal
+    differences; fill order 2 reverses each byte's bits; `tags` ({tag:
+    (type, values)}) are written over the others."""
+    import struct
+    import zlib
+    H, W, spp = px.shape
+    bits = bps[0]
+    tw, th = tile or (W, rps or H)
+    encode = {1: bytes, 5: tiff_lzw, 8: zlib.compress, 32946: zlib.compress,
+              32773: packbits}[comp]
+    chunks = []
+    for plane in ([px[..., i:i + 1] for i in range(spp)] if planar == 2
+                  else [px]):
+        for y in range(0, H, th):
+            for x in range(0, W, tw):
+                blk = plane[y:y + th, x:x + tw]
+                if tile:
+                    blk = np.pad(blk, ((0, th - blk.shape[0]),
+                                       (0, tw - blk.shape[1]), (0, 0)))
+                rows = blk.reshape(blk.shape[0], -1, blk.shape[2])
+                if predictor == 2:
+                    rows = np.diff(rows.astype(np.int64), axis=1,
+                                   prepend=0) % (1 << bits)
+                rows = rows.reshape(rows.shape[0], -1)
+                if bits == 16:
+                    raw = rows.astype(order + "u2").tobytes()
+                elif bits == 8:
+                    raw = rows.astype(np.uint8).tobytes()
+                else:
+                    b = (rows[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+                    raw = np.packbits(b.astype(np.uint8).reshape(
+                        rows.shape[0], -1), axis=1).tobytes()
+                raw = encode(raw)
+                if fill == 2:
+                    raw = TIFF_REVERSE[np.frombuffer(raw, np.uint8)].tobytes()
+                chunks.append(raw)
+    offsets = np.cumsum([8] + [len(c) for c in chunks[:-1]]).tolist()
+    t = {256: (4, [W]), 257: (4, [H]), 258: (3, list(bps)),
+         259: (3, [comp]), 262: (3, [photometric]), 277: (3, [spp])}
+    for tag, v, default in ((266, fill, 1), (284, planar, 1),
+                            (317, predictor, 1)):
+        if v != default:
+            t[tag] = (3, [v])
+    if extra:
+        t[338] = (3, list(extra))
+    if colormap is not None:
+        t[320] = (3, list(colormap))
+    if tile:
+        t.update({322: (3, [tw]), 323: (3, [th]), 324: (4, offsets),
+                  325: (4, [len(c) for c in chunks])})
+    else:
+        t.update({278: (4, [th]), 273: (4, offsets),
+                  279: (4, [len(c) for c in chunks])})
+    t.update(tags or {})
+    body = b"".join(chunks)
+    ifd = 8 + len(body) + len(body) % 2
+    at = ifd + 2 + 12 * len(t) + 4
+    entries, ext = b"", b""
+    for tag in sorted(t):
+        typ, vals = t[tag]
+        v = struct.pack(order + ("H" if typ == 3 else "I") * len(vals), *vals)
+        if len(v) > 4:
+            field, ext = struct.pack(order + "I", at + len(ext)), ext + v
+        else:
+            field = v.ljust(4, b"\0")
+        entries += struct.pack(order + "HHI", tag, typ, len(vals)) + field
+    return ((b"II*\0" if order == "<" else b"MM\0*")
+            + struct.pack(order + "I", ifd) + body + bytes(ifd - 8 - len(body))
+            + struct.pack(order + "H", len(t)) + entries + bytes(4) + ext)
+
+
+def palette_page(page):
+    """`page` quantised to the 6x6x6 colour cube → (indices uint8 [H, W],
+    palette uint8 [216, 3])."""
+    n = FORMAT_LEVELS
+    levels = (np.arange(n) * (255 // (n - 1))).astype(np.uint8)
+    q = (page.astype(np.int32) * n) >> 8
+    idx = (q[..., 0] * n * n + q[..., 1] * n + q[..., 2]).astype(np.uint8)
+    cube = np.stack(np.meshgrid(levels, levels, levels, indexing="ij"), -1)
+    return idx, cube.reshape(-1, 3)
+
+
+def bmp_bytes(page=None, idx=None, palette=None) -> bytes:
+    """A BMP with a 40-byte header: 24-bit rows of `page`, or RLE8 of
+    `idx` through `palette` (encoded runs, absolute runs of 3-255 pixels,
+    an end of line a row, bottom-up, then the end of the bitmap)."""
+    import struct
+    if page is not None:
+        H, W, _ = page.shape
+        stride = (W * 3 + 3) & ~3
+        rows = np.zeros((H, stride), np.uint8)
+        rows[:, :W * 3] = page[::-1, :, ::-1].reshape(H, -1)
+        pixels, bits, comp, pal = rows.tobytes(), 24, 0, b""
+    else:
+        H, W = idx.shape
+        out = bytearray()
+        for row in idx[::-1]:
+            starts = np.flatnonzero(np.r_[True, row[1:] != row[:-1]])
+            lengths = np.diff(np.r_[starts, W]).tolist()
+            lit = bytearray()
+
+            def flush():
+                for i in range(0, len(lit), 255):
+                    chunk = lit[i:i + 255]
+                    if len(chunk) < 3:      # too short for an absolute run
+                        for v in chunk:
+                            out.extend((1, v))
+                        continue
+                    out.extend((0, len(chunk)))
+                    out.extend(chunk)
+                    if len(chunk) % 2:
+                        out.append(0)
+                lit.clear()
+
+            for start, n in zip(starts.tolist(), lengths):
+                if n == 1:
+                    lit.append(int(row[start]))
+                    continue
+                flush()
+                while n:
+                    k = min(n, 255)
+                    out.extend((k, int(row[start])))
+                    n -= k
+            flush()
+            out.extend((0, 0))
+        out.extend((0, 1))
+        pixels, bits, comp = bytes(out), 8, 1
+        pal = np.concatenate([palette[:, ::-1], np.zeros_like(
+            palette[:, :1])], 1).astype(np.uint8).tobytes()
+    offset = 14 + 40 + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset)
+            + struct.pack("<IiiHHIIiiII", 40, W, H, 1, bits, comp,
+                          len(pixels), 2835, 2835, len(pal) // 4, 0)
+            + pal + pixels)
+
+
+def gif_lzw(data: bytes, bits: int) -> bytes:
+    """GIF LZW (LSB-first codes) of `data` from code size `bits`, with a
+    clear whenever the table fills."""
+    clear = 1 << bits
+    out, acc, nbits, size = bytearray(), 0, 0, bits + 1
+
+    def put(code):
+        nonlocal acc, nbits
+        acc |= code << nbits
+        nbits += size
+        while nbits >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nbits -= 8
+
+    fresh = {bytes((i,)): i for i in range(clear)}
+    table, nxt, w = dict(fresh), clear + 2, b""
+    put(clear)
+    for v in data:
+        wc = w + bytes((v,))
+        if wc in table:
+            w = wc
+            continue
+        put(table[w])
+        table[wc] = nxt
+        nxt += 1
+        if nxt > 1 << size and size < 12:
+            size += 1
+        if nxt == 4096:
+            put(clear)
+            table, nxt, size = dict(fresh), clear + 2, bits + 1
+        w = bytes((v,))
+    if w:
+        put(table[w])
+    put(clear + 1)
+    if nbits:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def gif_bytes(idx, palette) -> bytes:
+    """A GIF89a of `idx` through `palette` (a 256-entry global table, the
+    rest black): one frame, LZW from code size 8."""
+    import struct
+    H, W = idx.shape
+    out = gif_lzw(idx.tobytes(), 8)
+    blocks = b"".join(bytes((len(out[i:i + 255]),)) + out[i:i + 255]
+                      for i in range(0, len(out), 255)) + b"\0"
+    table_bytes = np.zeros((256, 3), np.uint8)
+    table_bytes[:len(palette)] = palette
+    return (b"GIF89a" + struct.pack("<HHBBB", W, H, 0xF7, 0, 0)
+            + table_bytes.tobytes() + b"," + struct.pack("<HHHHB", 0, 0, W,
+                                                         H, 0)
+            + b"\x08" + blocks + b";")
+
+
+def jpeg_scan_spans(data: bytes):
+    """The byte span of each scan of a JPEG: the DHT segments just before
+    its SOS, the SOS and its entropy data."""
+    import re
+    import struct
+    pos, start, spans = 2, None, []
+    while data[pos + 1] != 0xD9:
+        marker = data[pos + 1]
+        end = pos + 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if marker == 0xC4 and start is None:
+            start = pos
+        elif marker == 0xDA:
+            end = re.compile(rb"\xff(?![\x00\xd0-\xd7\xff])").search(
+                data, end).start()
+            spans.append((pos if start is None else start, end))
+            start = None
+        elif marker != 0xC4:
+            start = None
+        pos = end
+    return spans
+
+
+def jpeg_keep_scans(data: bytes, keep) -> bytes:
+    """A progressive JPEG cut to its scans `keep` (indices; each with the
+    Huffman tables just before it), then EOI."""
+    spans = jpeg_scan_spans(data)
+    return (data[:spans[0][0]] + b"".join(data[slice(*spans[i])]
+                                          for i in keep) + b"\xff\xd9")
+
+
+RGB8 = (8, 8, 8)
+# the written page files: name → writer of (bytes, the array PIL decodes
+# it to) from the doc and table pages; LZW + predictor, Deflate, tiled
+# LZW and PackBits TIFF, 24-bit BMP, and RLE8 BMP and GIF of the palette
+# page
+FORMAT_WRITERS = {
+    "doc_lzw_pred.tif": lambda doc, table: (tiff_bytes(
+        doc, RGB8, 2, comp=5, predictor=2, rps=64), doc),
+    "table_deflate.tif": lambda doc, table: (tiff_bytes(
+        table, RGB8, 2, comp=8, rps=100), table),
+    "doc_lzw_tiled.tif": lambda doc, table: (tiff_bytes(
+        doc, RGB8, 2, comp=5, tile=(FORMAT_TILE, FORMAT_TILE)), doc),
+    "table_packbits.tif": lambda doc, table: (tiff_bytes(
+        table, RGB8, 2, comp=32773, rps=128), table),
+    "doc_24.bmp": lambda doc, table: (bmp_bytes(page=doc), doc),
+    "doc_palette_rle8.bmp": lambda doc, table: palette_file(doc, "bmp"),
+    "doc_palette.gif": lambda doc, table: palette_file(doc, "gif")}
+
+
+def palette_file(page, kind):
+    """The RLE8 BMP ("bmp") or GIF ("gif") of `page`'s palette page →
+    (bytes, the palette page as RGB)."""
+    idx, palette = palette_page(page)
+    data = (bmp_bytes(idx=idx, palette=palette) if kind == "bmp"
+            else gif_bytes(idx, palette))
+    return data, palette[idx]
+
+
+def format_files(doc, table):
+    """The written page files → {name: (bytes, the array PIL decodes it
+    to)}."""
+    return {name: write(doc, table) for name, write in FORMAT_WRITERS.items()}
+
+
+def front_formats(doc, table, heat, det_fn, tmp, baseline_ms):
+    """The page formats beyond PNG and JPEG through `load_image`: each
+    written file equal to its array, the cut progressive page and the
+    committed G4 TIFF to PIL's hashes, ms a page beside the same run's
+    PNG and baseline JPEG (`baseline_ms`); `read` on the LZW TIFF and
+    `table` on the Deflate TIFF through `cli.main` print the PNG pages'
+    JSON (K1 + K2 a forward; K3 16).
+    Controls: a byte-flipped LZW TIFF must raise or miss, and the cut
+    page decoded without block smoothing must miss PIL's hash. → (the
+    record, the CLI runs' launches)."""
+    from advancedliteratemachinery_tpu_torch.pipelines import jpeg
+    from advancedliteratemachinery_tpu_torch.pipelines.file_loading import (
+        decode_image, load_image)
+    with open(os.path.join(PAGE_JPEGS, FORMAT_RECORD)) as f:
+        record = json.load(f)
+    ms, equal, sizes, paths = {}, {}, {}, {}
+    t0 = time.perf_counter()
+    files = format_files(doc, table)
+    write_s = time.perf_counter() - t0
+    for name, (data, want) in files.items():
+        paths[name] = os.path.join(tmp, name)
+        with open(paths[name], "wb") as f:
+            f.write(data)
+        sizes[name] = len(data)
+        t0 = time.perf_counter()
+        got = load_image(paths[name])
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        equal[name] = bool(np.array_equal(got, want))
+    with open(os.path.join(PAGE_JPEGS, FRONT_DOCS[0]), "rb") as f:
+        cut = jpeg_keep_scans(f.read(), FORMAT_CUT_SCANS)
+    with open(os.path.join(PAGE_JPEGS, FORMAT_G4), "rb") as f:
+        g4 = f.read()
+
+    def sha(a):
+        return hashlib.sha256(a.tobytes()).hexdigest()
+
+    for name, data in ((FORMAT_CUT, cut), (FORMAT_G4, g4)):
+        sizes[name] = len(data)
+        t0 = time.perf_counter()
+        got = decode_image(data)
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        equal[name] = sha(got) == record[name]["sha256"]
+    jpeg._SMOOTHING = False
+    try:
+        plain = sha(decode_image(cut)) == record[FORMAT_CUT]["sha256"]
+    finally:
+        jpeg._SMOOTHING = True
+    flipped = bytearray(files["doc_lzw_pred.tif"][0])
+    flipped[len(flipped) // 3] ^= 0x24
+    try:
+        got = decode_image(bytes(flipped))
+        control = ("missed" if not np.array_equal(got, doc)
+                   else "passed the gate")
+    except ValueError as e:
+        control = f"raised: {str(e)[:80]}"
+    runs, launches = [], {}
+    with ReadableDocCLI(heat):
+        for cmd, name, kind, page in (
+                ("read", "doc_lzw_pred.tif", "doc", doc),
+                ("table", "table_deflate.tif", "table", table)):
+            out, counts = counted(lambda: cli_json(
+                [cmd, paths[name], "--variant", "base"]))
+            png_out = cli_json([cmd, os.path.join(tmp, f"{kind}.png"),
+                                "--variant", "base"])
+            fwd = -(-len(det_fn(page)[0]) // 64)
+            want = {"fused_qkv_attention": 12 * fwd,
+                    "vocab_greedy_decode": 2 * fwd}
+            if cmd == "table":
+                want["deform_conv"] = 16
+            items = out["cells"] if cmd == "table" else out["instances"]
+            runs.append({"command": cmd, "file": name, "launches": counts,
+                         "expected": want, "items": len(items),
+                         "equals_png_json": out == png_out})
+            require(counts == want and runs[-1]["equals_png_json"]
+                    and items, f"{cmd} on {name}: {runs[-1]}")
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+    rec = {"decode_ms_per_page": ms, "baseline_ms_per_page": baseline_ms,
+           "equals_expected": equal, "bytes": sizes, "write_s": write_s,
+           "cli_runs": runs,
+           "controls": {"byte_flipped_lzw_tiff": control,
+                        "cut_page_unsmoothed_equals_pil": plain}}
+    require(all(equal.values()) and control != "passed the gate"
+            and plain is False,
+            f"the page formats do not decode to PIL's arrays: {rec}")
+    return rec, launches
 
 
 def front_visualize(heat, pages, det_fn, tmp):
@@ -5020,8 +5461,15 @@ def docxchain_front_phase(card, engine, det_fn, layout_fn, heat, doc,
     its CLI runs, by kernel."""
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
-        pages = front_decodes(doc, table, tmp)
+        pages, baseline_ms = front_decodes(doc, table, tmp)
+        t0 = time.perf_counter()
+        formats, format_launches = front_formats(doc, table, heat, det_fn,
+                                                 tmp, baseline_ms)
+        emit({"phase": "docxchain_front_formats", "card": card,
+              "seconds": time.perf_counter() - t0, **formats})
         vis, launches = front_visualize(heat, pages, det_fn, tmp)
+        for k, v in format_launches.items():
+            launches[k] = launches.get(k, 0) + v
         emit({"phase": "docxchain_front_visualize", "card": card, **vis})
         formula = front_formula(engine, det_fn, layout_fn,
                                 pages[FRONT_DOCS[0]], tmp)

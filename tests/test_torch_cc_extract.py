@@ -19,6 +19,7 @@ from advancedliteratemachinery_tpu_torch.ops.cc_extract import (
     _seg_run_max_scan, connected_components, extract_boxes_device)
 from advancedliteratemachinery_tpu_torch.ops.image import (
     crop_rects, normalize_crops)
+from test_torch_mgp_str import FAST_COMPILE, fast_jit
 
 torch.set_num_threads(2)
 
@@ -62,7 +63,8 @@ def test_scan_fallback_matches(dim):
     lab = np.where(mask, np.arange(H * W).reshape(H, W), -1).astype(np.int32)
     got = _seg_run_max_scan(torch.from_numpy(lab), torch.from_numpy(mask),
                             dim - 2).numpy()
-    want = np.asarray(jax.jit(j_scan, static_argnums=2)(
+    want = np.asarray(jax.jit(j_scan, static_argnums=2,
+                              compiler_options=FAST_COMPILE)(
         jnp.asarray(lab), jnp.asarray(mask), dim - 2))
     np.testing.assert_array_equal(got, want)
 
@@ -72,7 +74,8 @@ def test_extract_boxes_match(max_boxes):
     prob = _pages()
     q, s, v = extract_boxes_device(torch.from_numpy(prob),
                                    max_boxes=max_boxes)
-    jq, js, jv = j_extract(jnp.asarray(prob), max_boxes=max_boxes)
+    jq, js, jv = fast_jit(j_extract, jnp.asarray(prob),
+                          max_boxes=max_boxes)(jnp.asarray(prob))
     np.testing.assert_array_equal(v.numpy(), np.asarray(jv))
     # f32 trigonometry and sums in another order: corners to 1e-3 px
     np.testing.assert_allclose(q.numpy(), np.asarray(jq), atol=1e-3)

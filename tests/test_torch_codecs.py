@@ -39,6 +39,7 @@ from advancedliteratemachinery_tpu_torch.models.mgp_str import (
     MGPSTR, MGPSTRConfig)
 from advancedliteratemachinery_tpu_torch.models.vit import ViTConfig
 from advancedliteratemachinery_tpu_torch.ops import image as timage
+from test_torch_mgp_str import fast_engine
 
 torch.set_num_threads(2)
 
@@ -222,9 +223,10 @@ def test_recognize_fuses_three_heads_as_jax():
     wp_t, wp_j = wp_pair(batch_max_length=M.T - 2)
     images = np.random.default_rng(5).integers(0, 256, (12, 32, 128, 3),
                                                dtype=np.uint8)
-    want = JInference(jm, params, JCharCodec(batch_max_length=M.T - 2),
+    jeng = JInference(jm, params, JCharCodec(batch_max_length=M.T - 2),
                       bpe_j, wp_j, input_dtype=jnp.float32,
-                      fused_decode="never").recognize(images)
+                      fused_decode="never")
+    want = fast_engine(jeng, jeng.params, images).recognize(images)
     got = MGPSTRInference(tm, CharCodec(batch_max_length=M.T - 2), bpe_t,
                           wp_t, input_dtype=torch.float32,
                           device="cpu").recognize(images)

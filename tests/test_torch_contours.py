@@ -211,9 +211,8 @@ def test_detect_fn_matches_the_jax_cli():
     cfg = dict(width=8, fpn_dim=16, head_dim=8)
     page = cs.document_pages(1, (640, 640), seed=5)[0]
     jm = JDBDetector(JDBConfig(**cfg), policy=J_FP32)
-    x0 = jnp.zeros((1, 640, 640, 3))
-    variables = random_flax_tree(jm, x0)
     tm = DBDetector(DBConfig(**cfg), policy=FP32_POLICY, device="cpu")
+    variables = random_flax_tree(jm, like=tm)
     load_flax_params(tm, variables["params"], variables["batch_stats"])
     cs.readable_db(tm)
     variables = flax_from_torch(tm, variables)

@@ -14,7 +14,7 @@ from advancedliteratemachinery_tpu_torch.core.precision import FP32_POLICY
 from advancedliteratemachinery_tpu_torch.engine.convert import (
     load_flax_params)
 from advancedliteratemachinery_tpu_torch.models.db import DBConfig, DBDetector
-from test_torch_mgp_str import random_flax_tree
+from test_torch_mgp_str import FAST_COMPILE, random_flax_tree
 
 torch.set_num_threads(2)
 
@@ -28,11 +28,12 @@ def test_prob_map_matches_jax():
     jm = JDBDetector(JDBConfig(**CFG), policy=J_FP32)
     # random weights and non-trivial BatchNorm statistics, so eval-mode BN
     # is really exercised
-    variables = random_flax_tree(jm, jnp.asarray(pages[:1]))
-    want = np.asarray(
-        jax.jit(jm.apply)(variables, jnp.asarray(pages))["prob"])
-
     tm = DBDetector(DBConfig(**CFG), policy=FP32_POLICY, device="cpu")
+    variables = random_flax_tree(jm, like=tm)
+    want = np.asarray(
+        jax.jit(jm.apply, compiler_options=FAST_COMPILE)(
+            variables, jnp.asarray(pages))["prob"])
+
     load_flax_params(tm, variables["params"], variables["batch_stats"])
     with torch.no_grad():
         got = tm(torch.from_numpy(pages))["prob"].numpy()

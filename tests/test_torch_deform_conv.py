@@ -9,6 +9,8 @@ its gather fallback for many) and with the gather formulation
 Float32 on both sides: the tolerance covers summation order only.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,7 +27,7 @@ from advancedliteratemachinery_tpu_torch.engine.convert import (
     load_flax_params)
 from advancedliteratemachinery_tpu_torch.ops.deform_conv import (
     DeformConv2d, deform_conv2d)
-from test_torch_mgp_str import FAST_COMPILE
+from test_torch_mgp_str import FAST_COMPILE, fast_jit, flax_zeros
 
 torch.set_num_threads(2)
 
@@ -65,13 +67,22 @@ def _port(x, off, m, w, bias, **kw):
     return deform_conv2d(t(x), t(off), t(m), t(w), t(bias), **kw).numpy()
 
 
+@functools.lru_cache(maxsize=None)
+def _j_dcn(radius):
+    """The JAX `deform_conv2d` at `_inputs`' shapes and `window_radius`,
+    compiled once with FAST_COMPILE."""
+    rng, x, w, m, bias = _inputs()
+    return fast_jit(j_deform_conv2d, x, _offsets(rng, "in_window"), m, w,
+                    bias, window_radius=radius)
+
+
 @pytest.mark.parametrize("kind", ["in_window", "some_beyond", "all_beyond",
                                   "off_image"])
 @pytest.mark.parametrize("radius", [3, None])
 def test_matches_jax(kind, radius):
     rng, x, w, m, bias = _inputs()
     off = _offsets(rng, kind)
-    want = j_deform_conv2d(x, off, m, w, bias, window_radius=radius)
+    want = _j_dcn(radius)(x, off, m, w, bias)
     np.testing.assert_allclose(_port(x, off, m, w, bias), np.asarray(want),
                                **TOL)
 
@@ -120,7 +131,7 @@ def test_module_matches_jax_module():
     jm = JDeformConv2d(CO, policy=J_FP32)
     x = np.random.default_rng(3).standard_normal((B, H, W, CI)).astype(
         np.float32)
-    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(x))
+    shapes = flax_zeros(DeformConv2d(CI, CO, policy=FP32_POLICY))
     rng = np.random.default_rng(4)
     params = jax.tree_util.tree_map(
         lambda s: rng.standard_normal(s.shape).astype(np.float32),

@@ -48,7 +48,8 @@ from advancedliteratemachinery_tpu_torch.ops.deform_conv import (
     DeformConv2d, supports_deform_conv)
 from advancedliteratemachinery_tpu_torch.ops.vocab_decode import (
     supports_fused_decode)
-from test_torch_mgp_str import VIT, VOCABS, random_flax_tree
+from test_torch_mgp_str import (
+    FAST_COMPILE, VIT, VOCABS, fast_engine, random_flax_tree)
 
 torch.set_num_threads(2)
 
@@ -129,12 +130,11 @@ def pair():
     """A depth-2, width-192 MGP-STR in f32 on both sides, the same weights;
     the head biases favour each head's EOS id."""
     jm = JMGPSTR(JConfig(vit=JViTConfig(**VIT), **VOCABS), policy=J_FP32)
-    params = random_flax_tree(jm, jnp.zeros((1, 32, 128, 3)), seed=5)[
-        "params"]
-    for head, eos in (("char", 1), ("bpe", 2), ("wp", 102)):
-        params[f"{head}_head"]["bias"][eos] += 3.0
     tm = MGPSTR(MGPSTRConfig(vit=ViTConfig(**VIT), **VOCABS),
                 policy=FP32_POLICY, device="cpu")
+    params = random_flax_tree(jm, seed=5, like=tm)["params"]
+    for head, eos in (("char", 1), ("bpe", 2), ("wp", 102)):
+        params[f"{head}_head"]["bias"][eos] += 3.0
     load_flax_params(tm, params)
     return jm, params, tm
 
@@ -164,7 +164,8 @@ def test_mgp_str_attention_takes_the_plain_path_on_cpu(pair, monkeypatch):
     monkeypatch.setattr(layers, "fused_qkv_attention", no_kernel)
     x = np.random.default_rng(6).uniform(-1, 1, (2, 32, 128, 3)).astype(
         np.float32)
-    want = jax.jit(jm.apply)({"params": params}, jnp.asarray(x))
+    want = jax.jit(jm.apply, compiler_options=FAST_COMPILE)(
+        {"params": params}, jnp.asarray(x))
     with torch.no_grad():
         got = tm(torch.from_numpy(x))
     assert calls == [(2, 257, 3, 64)] * 2
@@ -174,16 +175,26 @@ def test_mgp_str_attention_takes_the_plain_path_on_cpu(pair, monkeypatch):
                                    rtol=1e-5, atol=1e-5)
 
 
+@pytest.fixture(scope="module")
+def jax_engine_run(pair):
+    """The JAX engine (`fused_decode="never"`) on 5 seeded crops, compiled
+    once for the module: (the crops, its outputs)."""
+    jm, params, _ = pair
+    images = np.random.default_rng(7).integers(0, 256, (5, 32, 128, 3),
+                                               dtype=np.uint8)
+    jeng = JInference(jm, params, CharCodec(), input_dtype=jnp.float32,
+                      fused_decode="never")
+    return images, fast_engine(jeng, jeng.params, images)(images)
+
+
 @pytest.mark.parametrize("fused_decode", ["never", "auto"])
-def test_engine_matches_jax_without_fused_heads(pair, fused_decode):
+def test_engine_matches_jax_without_fused_heads(pair, jax_engine_run,
+                                                fused_decode):
     """`fused_decode="never"` fuses no head; neither does "auto" on the CPU
     (the check fails there): every head is decoded from its logits, as the
     JAX engine's `fused_decode="never"`."""
-    jm, params, tm = pair
-    images = np.random.default_rng(7).integers(0, 256, (5, 32, 128, 3),
-                                               dtype=np.uint8)
-    want = JInference(jm, params, CharCodec(), input_dtype=jnp.float32,
-                      fused_decode="never")(images)
+    _, _, tm = pair
+    images, want = jax_engine_run
     before = dict(_kernels.LAUNCHES)
     engine = _engine(tm, fused_decode)
     got = engine(images)
@@ -237,7 +248,8 @@ def test_encoder_block_path_by_sequence_length(monkeypatch, seq):
     x = np.random.default_rng(seq).standard_normal((2, seq, dim)).astype(
         np.float32)
     params = random_flax_tree(jb, jnp.asarray(x), seed=9)["params"]
-    want = np.asarray(jax.jit(jb.apply)({"params": params}, jnp.asarray(x)))
+    want = np.asarray(jax.jit(jb.apply, compiler_options=FAST_COMPILE)(
+        {"params": params}, jnp.asarray(x)))
     tb = load_flax_params(EncoderBlock(dim, heads, policy=FP32_POLICY),
                           params)
     real_check, real_fused = supports_fused_qkv, layers.fused_qkv_attention

@@ -13,7 +13,6 @@ model compiles once)."""
 import dataclasses
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -34,7 +33,7 @@ from advancedliteratemachinery_tpu_torch.models.docxlayout import (
     DocXLayout, DocXLayoutConfig, make_layout_predict_fn)
 from test_docxlayout import TINY as J_TINY
 from test_torch_lore import random_lore_tree
-from test_torch_mgp_str import FAST_COMPILE
+from test_torch_mgp_str import FAST_COMPILE, flax_zeros
 
 torch.set_num_threads(2)
 
@@ -62,8 +61,8 @@ def docx_pair():
     rng = np.random.default_rng(3)
     page = rng.integers(0, 256, (64, 64, 3), dtype=np.uint8)
     jm = jdocx.DocXLayout(J_TINY, policy=J_FP32)
-    x0 = jnp.zeros((1, 64, 64, 3))
-    shapes = jax.eval_shape(lambda x: jm.init(jax.random.PRNGKey(0), x), x0)
+    tm = DocXLayout(port_config(J_TINY), policy=FP32_POLICY, device="cpu")
+    shapes = flax_zeros(tm)          # the JAX model's tree, from the port's
     variables = random_lore_tree(shapes, seed=4)
     compiled = jax.jit(lambda v, x: jm.apply(
         v, x, method=jm.infer,
@@ -88,7 +87,6 @@ def docx_pair():
                 J_TINY, score_threshold=thresh), policy=J_FP32)
             preds[thresh] = jdocx.make_layout_predict_fn(m, variables)(page)
     want, maps = calls[0]
-    tm = DocXLayout(port_config(J_TINY), policy=FP32_POLICY, device="cpu")
     load_flax_params(tm, variables["params"], variables["batch_stats"])
     return want, maps, preds, tm, page, shapes
 

@@ -36,7 +36,7 @@ from advancedliteratemachinery_tpu_torch.engine.convert import (
 from advancedliteratemachinery_tpu_torch.engine.infer import LevOCRInference
 from advancedliteratemachinery_tpu_torch.models import abinet, levocr
 from advancedliteratemachinery_tpu_torch.ops import levenshtein as lev
-from test_torch_mgp_str import FAST_COMPILE
+from test_torch_mgp_str import FAST_COMPILE, fast_engine, flax_zeros
 
 torch.set_num_threads(2)
 
@@ -124,8 +124,8 @@ def port_model(variables, policy=FP32_POLICY):
 def jax_run():
     """One set of weights; the JAX engine on 6 uint8 crops (its compiled
     normalize + refine also gives the tokens and scores), and one compiled
-    JAX run of the heads forward and of the vision branch on the same
-    normalized crops."""
+    JAX run of the heads forward, which captures the vision branch's
+    outputs on the same normalized crops."""
     jcfg, _ = configs()
     jm = jlevocr.LevOCR(jcfg, policy=J_FP32)
     rng = np.random.default_rng(0)
@@ -135,16 +135,21 @@ def jax_run():
     noised = d.encode(["ab", "xyz", "", "hello", "q1", "zz9"])
     masked = d.encode(["abc", "xyz", "a", "hell", "q12", "z9"])
     tok = jnp.asarray(noised)
-    shapes = jax.eval_shape(lambda: jm.init(
-        jax.random.PRNGKey(0), jnp.asarray(x), tok, tok, train=False))
+    shapes = flax_zeros(levocr.LevOCR(configs()[1], policy=FP32_POLICY,
+                                      device="cpu"))
     variables = readable_vision(random_variables(shapes, seed=3))
-    engine = JInference(jm, variables)
-    texts = engine.recognize(u8)
-    tokens, scores = jax.tree.map(np.asarray, engine._run(variables, u8))
+    engine = fast_engine(JInference(jm, variables), variables, u8)
+    run, runs = engine._run, []
+    engine._run = lambda v, images: runs.append(run(v, images)) or runs[-1]
+    texts = engine.recognize(u8)            # its one run's tokens, scores
+    tokens, scores = jax.tree.map(np.asarray, runs[0])
 
     def heads_and_vision(v, x, a, b):
-        return (jm.apply(v, x, a, b, train=False),
-                jm.apply(v, x, method=lambda mod, x: mod.vision(x)))
+        # the vision branch's outputs captured inside the heads forward
+        heads, state = jm.apply(
+            v, x, a, b, train=False, capture_intermediates=lambda m, n: (
+                m.name == "vision" and n == "__call__"))
+        return heads, state["intermediates"]["vision"]["__call__"][0]
 
     heads, vis = jax.tree.map(np.asarray, jax.jit(
         heads_and_vision, compiler_options=FAST_COMPILE)(
@@ -191,7 +196,8 @@ EDIT_OPS = {
 @pytest.mark.parametrize("op", sorted(EDIT_OPS))
 def test_edit_ops_equal_jax(op):
     case = edit_case(seed=len(op))
-    want = jax.jit(lambda c: EDIT_OPS[op](jlev, c))(
+    want = jax.jit(lambda c: EDIT_OPS[op](jlev, c),
+                   compiler_options=FAST_COMPILE)(
         {k: jnp.asarray(v) for k, v in case.items()})
     got = EDIT_OPS[op](lev, {k: torch.from_numpy(v)
                              for k, v in case.items()})
@@ -278,7 +284,8 @@ def test_vision_matches_jax(jax_run, width):
             (2, 32, width, 3)).astype(np.float32)
         jm = jabinet.ABINetVision(jabinet.ABINetVisionConfig(**VISION_KW),
                                   policy=J_FP32)
-        want = jax.tree.map(np.asarray, jax.jit(jm.apply)(vv, x))
+        want = jax.tree.map(np.asarray, jax.jit(
+            jm.apply, compiler_options=FAST_COMPILE)(vv, x))
     tm = abinet.ABINetVision(abinet.ABINetVisionConfig(**VISION_KW),
                              policy=FP32_POLICY, device="cpu")
     load_flax_params(tm, vv["params"], vv["batch_stats"])
@@ -331,7 +338,8 @@ def run_attention_module(name, policy, tpolicy):
     shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), *args)
     v = random_variables(shapes, seed=11)
     want = jax.tree.map(lambda a: np.asarray(a, np.float32),
-                        jax.jit(jm.apply)(v, *args))
+                        jax.jit(jm.apply, compiler_options=FAST_COMPILE)(
+                            v, *args))
     load_flax_params(tm, v["params"], v.get("batch_stats"))
     tm.eval()
     with torch.no_grad():

@@ -23,7 +23,7 @@ from advancedliteratemachinery_tpu_torch.engine.infer import LISTERInference
 from advancedliteratemachinery_tpu_torch.models import lister
 from advancedliteratemachinery_tpu_torch.models.focalnet import (
     FocalNet, FocalNetConfig, downsample_mask)
-from test_torch_mgp_str import FAST_COMPILE
+from test_torch_mgp_str import FAST_COMPILE, fast_jit, flax_zeros
 
 torch.set_num_threads(2)
 
@@ -79,8 +79,8 @@ def jax_run():
         np.float32)
     mask = np.ones((3, 32, 64), np.float32)
     mask[2, :, 40:] = 0.0
-    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(x),
-                            jnp.asarray(mask))
+    shapes = flax_zeros(lister.LISTER(configs(1)[1], policy=FP32_POLICY,
+                                      device="cpu"))
     params = random_params(shapes["params"], seed=2)
     want, state = jax.jit(lambda p, x, m: jm.apply(
         {"params": p}, x, m, capture_intermediates=lambda mod, n: (
@@ -151,6 +151,7 @@ def test_inference_engine_matches(jax_run, iters):
     images = np.random.default_rng(3).integers(0, 256, (4, 32, 64, 3),
                                                dtype=np.uint8)
     jeng = JInference(jm, params, input_dtype=jnp.float32)
+    jeng._run = fast_jit(jeng._run, jeng.params, jnp.asarray(images))
     want_ids, want_conf = (np.asarray(a) for a in jeng._run(
         jeng.params, jnp.asarray(images)))
     engine = LISTERInference(tm, input_dtype=torch.float32, device="cpu")

@@ -1,7 +1,8 @@
 """LORE-TSR port (models/dla, ops/heatmap, models/lore, engine/convert)
 against the JAX package on the CPU, at `tests/test_lore.py`'s TINY_LORE
 (64x64 pages), with the same numpy-seeded weights carried across by
-engine/convert; float32 on both sides.
+engine/convert (their tree shaped from the port's module, `flax_zeros`);
+float32 on both sides.
 
 On the JAX side the DLA's `DeformConv2d` is swapped, in this file only, for
 a subclass whose `window_radius` defaults to None: the gather formulation,
@@ -41,7 +42,7 @@ from advancedliteratemachinery_tpu_torch.models.dla import (
 from advancedliteratemachinery_tpu_torch.models.lore import LORE, LoreConfig
 from advancedliteratemachinery_tpu_torch.ops import heatmap as theat
 from test_lore import TINY_LORE as J_TINY_LORE
-from test_torch_mgp_str import FAST_COMPILE
+from test_torch_mgp_str import FAST_COMPILE, flax_zeros
 
 torch.set_num_threads(2)
 
@@ -103,13 +104,11 @@ def lore_pair():
     page batch."""
     x = np.random.default_rng(1).standard_normal((2, 64, 64, 3)).astype(
         np.float32)
+    tm = LORE(port_config(J_TINY_LORE), policy=FP32_POLICY, device="cpu")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jdla, "DeformConv2d", GatherDeformConv2d)
         jm = JLORE(J_TINY_LORE, policy=J_FP32)
-        shapes = jax.eval_shape(
-            lambda x: jm.init(jax.random.PRNGKey(0), x, method=JLORE.infer),
-            jnp.asarray(x))
-        variables = random_lore_tree(shapes)
+        variables = random_lore_tree(flax_zeros(tm))
         want, state = jax.jit(lambda v, x: jm.apply(
             v, x, method=JLORE.infer,
             capture_intermediates=lambda m, n: (m.name == "backbone"
@@ -118,7 +117,6 @@ def lore_pair():
     want = jax.tree_util.tree_map(np.asarray, want)
     maps = jax.tree_util.tree_map(
         np.asarray, state["intermediates"]["backbone"]["__call__"][0])
-    tm = LORE(port_config(J_TINY_LORE), policy=FP32_POLICY, device="cpu")
     load_flax_params(tm, variables["params"], variables["batch_stats"])
     return want, maps, tm, x, variables
 
@@ -234,7 +232,7 @@ def tie_refs():
                                        j["cr"], reg=j["reg"], k=k),
                 jheat.corner_decode(j_hm[..., 1:], j["st"], j["reg"], k=k))
 
-    run = jax.jit(refs, static_argnums=2)
+    run = jax.jit(refs, static_argnums=2, compiler_options=FAST_COMPILE)
     return {k: jax.tree_util.tree_map(np.asarray,
                                       run(jnp.asarray(logits), j, k))
             for k in TIE_KS}

@@ -36,16 +36,77 @@ torch.set_num_threads(2)
 # multiply-adds contracted into FMAs)
 FAST_COMPILE = {"xla_backend_optimization_level": 0}
 
+
+def fast_jit(fn, *args, **static):
+    """The JAX package's `jax.jit` function `fn` lowered for `args` (and
+    its static arguments `static`) and compiled with FAST_COMPILE → the
+    compiled function, called with `args` alone."""
+    return fn.lower(*args, **static).compile(FAST_COMPILE)
+
+
+def fast_engine(engine, weights, images):
+    """A JAX inference engine whose jitted `_run(weights, images_u8)` is
+    compiled with FAST_COMPILE for `images`' shape."""
+    engine._run = fast_jit(engine._run, weights, jnp.asarray(images))
+    return engine
+
+
 VIT = dict(embed_dim=192, depth=2, num_heads=3)
 VOCABS = dict(bpe_vocab_size=1000, wp_vocab_size=1100)   # padded 1024, 1152
 
 
-def random_flax_tree(model, *example_args, seed=0):
+def flax_zeros(module: torch.nn.Module) -> dict:
+    """The flax variables (`params`, and `batch_stats` where there is
+    BatchNorm) of the JAX twin of the port's `module`, as zeros: each
+    parameter under its flax path, by the inverse of engine/convert.py
+    (conv OIHW → kernel HWIO, Linear weight → kernel [in, out], Embedding
+    weight → embedding, a norm's weight → scale, BatchNorm running
+    stats → mean, var). The port's submodules carry the flax names;
+    flax's `apply` refuses a tree that lacks one of its model's
+    parameters or gives one another shape, and the outputs' parity shows
+    the port reads no other. So this stands in for tracing
+    `jax.eval_shape(model.init)`, which takes seconds on the CPU; the
+    tree, and so a seeded fill, is the same."""
+    tree: dict = {}
+    params = dict(module.named_parameters())
+    for key, v in module.state_dict().items():
+        path, leaf = key.rsplit(".", 1) if "." in key else ("", key)
+        mod = module.get_submodule(path)
+        shape, coll = tuple(v.shape), "params"
+        if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
+            if leaf == "num_batches_tracked":
+                continue
+            coll, leaf = {"weight": ("params", "scale"),
+                          "bias": ("params", "bias"),
+                          "running_mean": ("batch_stats", "mean"),
+                          "running_var": ("batch_stats", "var")}[leaf]
+        elif key not in params:
+            continue                    # a buffer with no flax twin
+        elif leaf == "weight" and len(shape) == 4:
+            leaf, shape = "kernel", (shape[2], shape[3], shape[1], shape[0])
+        elif isinstance(mod, torch.nn.Embedding):
+            leaf = "embedding"
+        elif leaf == "weight" and isinstance(mod, torch.nn.Linear):
+            leaf, shape = "kernel", shape[::-1]
+        elif leaf == "weight" and isinstance(mod, (
+                torch.nn.LayerNorm, torch.nn.GroupNorm)):
+            leaf = "scale"
+        node = tree.setdefault(coll, {})
+        for part in path.split(".") if path else ():
+            node = node.setdefault(part, {})
+        node[leaf] = np.zeros(shape, np.float32)
+    return tree
+
+
+def random_flax_tree(model, *example_args, seed=0, like=None):
     """A flax variable tree for `model` filled from a numpy seed, without
     running its (slow, on the CPU) init: kernels N(0, 1/fan_in), biases and
     BatchNorm means N(0, 0.1-0.3), norm scales near 1, BatchNorm variances
-    in [0.5, 2], embeddings N(0, 0.02)."""
-    shapes = jax.eval_shape(model.init, jax.random.PRNGKey(0), *example_args)
+    in [0.5, 2], embeddings N(0, 0.02). With `like` (the port's twin of
+    `model`) the tree's shapes come from it (`flax_zeros`) instead of from
+    tracing `model.init`."""
+    shapes = (flax_zeros(like) if like is not None else jax.eval_shape(
+        model.init, jax.random.PRNGKey(0), *example_args))
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
@@ -76,11 +137,11 @@ def pair():
     """(JAX model, params, port model) sharing one set of weights. The head
     biases favour each head's EOS id so that confidences are non-zero."""
     jm = JMGPSTR(JConfig(vit=JViTConfig(**VIT), **VOCABS), policy=J_FP32)
-    params = random_flax_tree(jm, jnp.zeros((1, 32, 128, 3)))["params"]
-    for head, eos in (("char", 1), ("bpe", 2), ("wp", 102)):
-        params[f"{head}_head"]["bias"][eos] += 3.0
     tm = MGPSTR(MGPSTRConfig(vit=ViTConfig(**VIT), **VOCABS),
                 policy=FP32_POLICY, device="cpu")
+    params = random_flax_tree(jm, like=tm)["params"]
+    for head, eos in (("char", 1), ("bpe", 2), ("wp", 102)):
+        params[f"{head}_head"]["bias"][eos] += 3.0
     load_flax_params(tm, params)
     return jm, params, tm
 
@@ -89,7 +150,8 @@ def test_logits_and_decode_tokens_match(pair):
     jm, params, tm = pair
     x = np.random.default_rng(1).uniform(-1, 1, (3, 32, 128, 3)).astype(
         np.float32)
-    apply = jax.jit(jm.apply, static_argnames="decode_tokens")
+    apply = jax.jit(jm.apply, static_argnames="decode_tokens",
+                    compiler_options=FAST_COMPILE)
     want = apply({"params": params}, jnp.asarray(x))
     want_tok = apply({"params": params}, jnp.asarray(x), decode_tokens=True)
     with torch.no_grad():
@@ -108,8 +170,9 @@ def test_logits_and_decode_tokens_match(pair):
 def test_inference_engine_matches(pair):
     jm, params, tm = pair
     images = _images(6)
-    want = JInference(jm, params, CharCodec(), input_dtype=jnp.float32,
-                      fused_decode="never")(images)
+    jeng = JInference(jm, params, CharCodec(), input_dtype=jnp.float32,
+                      fused_decode="never")
+    want = fast_engine(jeng, jeng.params, images)(images)
     engine = MGPSTRInference(tm, TCharCodec(), input_dtype=torch.float32,
                              device="cpu")
     got = engine(images)
@@ -133,10 +196,10 @@ def test_bf16_encoder_features_close():
     jv = JViT(JViTConfig(**VIT), policy=J_DEFAULT)
     x = np.random.default_rng(2).uniform(-1, 1, (2, 32, 128, 3)).astype(
         np.float32)
-    params = random_flax_tree(jv, jnp.asarray(x), seed=3)["params"]
-    want = np.asarray(jax.jit(jv.apply)({"params": params}, jnp.asarray(x)),
-                      np.float32)
     tv = VisionTransformer(ViTConfig(**VIT), policy=DEFAULT_POLICY)
+    params = random_flax_tree(jv, seed=3, like=tv)["params"]
+    want = np.asarray(jax.jit(jv.apply, compiler_options=FAST_COMPILE)(
+        {"params": params}, jnp.asarray(x)), np.float32)
     load_flax_params(tv, params)
     with torch.no_grad():
         got = tv(torch.from_numpy(x)).float().numpy()

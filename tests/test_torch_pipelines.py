@@ -342,10 +342,15 @@ def test_reading_order_matches_jax():
     assert tdoc.sort_reading_order(items) == jdoc.sort_reading_order(items)
 
 
-def test_convert_document_matches_jax(tmp_path):
+@pytest.mark.parametrize("fmt", ["png", "tiff", "gif", "bmp"])
+def test_convert_document_matches_jax(tmp_path, fmt):
+    """The whole structurization from a page file: the JAX package reads
+    it with PIL, the port with its own decoders (an LZW TIFF, a GIF
+    through PIL's palette, a BMP)."""
     page = seeded_page(9)
-    path = str(tmp_path / "page.png")
-    Image.fromarray(page).save(path)
+    path = str(tmp_path / f"page.{fmt}")
+    Image.fromarray(page).save(path, **({"compression": "tiff_lzw"}
+                                        if fmt == "tiff" else {}))
     jp, _, tp, _ = both(lambda m, d, rec: d.DocumentStructurization(
         m.LayoutAnalysis(fake_layout), m.TextDetection(fake_detector), rec))
     assert tdoc.convert_document(path, tp) == jdoc.convert_document(path,
@@ -389,11 +394,25 @@ def png_bytes(rows: np.ndarray, ctype: int, filters, palette=None) -> bytes:
                                                                    b"")
 
 
-@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA", "P"])
+@pytest.mark.parametrize("mode", ["L", "LA", "RGB", "RGBA", "P", "BMP",
+                                  "GIF", "TIFF"])
 def test_load_image_matches_pil(tmp_path, mode):
     rng = np.random.default_rng(10)
     base = rng.integers(0, 256, (37, 53, 4), dtype=np.uint8)
     base[5:20, 5:30] = 200
+    if mode in ("BMP", "GIF", "TIFF"):      # PIL's files of each format
+        saves = {"BMP": [("RGB", {}), ("P", {}), ("L", {}), ("1", {})],
+                 "GIF": [("RGB", {}), ("L", {})],
+                 "TIFF": [("RGB", {"compression": c}) for c in (
+                     "raw", "tiff_lzw", "tiff_adobe_deflate", "packbits")]
+                 + [("CMYK", {"compression": "tiff_lzw"}),
+                    ("1", {"compression": "group4"})]}[mode]
+        for i, (m, kw) in enumerate(saves):
+            path = str(tmp_path / f"{i}.{mode.lower()}")
+            Image.fromarray(base[..., :3]).convert(m).save(path, **kw)
+            want = np.asarray(Image.open(path).convert("RGB"))
+            np.testing.assert_array_equal(tload.load_image(path), want)
+        return
     im = {"L": lambda: Image.fromarray(base[..., 0]),
           "LA": lambda: Image.fromarray(base[..., :2], "LA"),
           "RGB": lambda: Image.fromarray(base[..., :3]),
@@ -427,9 +446,10 @@ def test_load_image_npy_and_refusals(tmp_path):
     np.testing.assert_array_equal(
         tload.load_image(str(tmp_path / "page.jpg")),
         np.asarray(Image.open(tmp_path / "page.jpg").convert("RGB")))
-    Image.fromarray(page).save(tmp_path / "page.bmp")
+    (tmp_path / "page.webp").write_bytes(b"RIFF\0\0\0\0WEBPVP8 "
+                                         + bytes(20))
     with pytest.raises(ValueError, match="queued") as e:
-        tload.load_image(str(tmp_path / "page.bmp"))
+        tload.load_image(str(tmp_path / "page.webp"))
     assert "Pillow" not in str(e.value) and "PIL" not in str(e.value)
     with pytest.raises(ImportError, match="(?i)pdf"):
         tload.load_document(str(tmp_path / "doc.pdf"))
@@ -536,6 +556,23 @@ def test_http_routes(server):
         with pytest.raises(urllib.error.HTTPError) as e:
             post(srv.port, path, body)
         assert e.value.code == code and "error" in json.loads(e.value.read())
+
+
+def test_http_read_takes_a_tiff_body(server):
+    """`/v1/read` decodes a TIFF body (LZW, as a scanner writes one) as
+    it decodes the same page's PNG."""
+    srv, _ = server
+    rng = np.random.default_rng(14)
+    page = rng.integers(0, 256, (64, 256, 3), np.uint8)
+    answers = []
+    for fmt, kw in (("PNG", {}), ("TIFF", {"compression": "tiff_lzw"})):
+        buf = io.BytesIO()
+        Image.fromarray(page).save(buf, format=fmt, **kw)
+        status, payload = post(srv.port, "/v1/read", buf.getvalue(),
+                               f"image/{fmt.lower()}")
+        assert status == 200 and len(payload["words"]) == 2
+        answers.append(payload)
+    assert answers[0] == answers[1]
 
 
 def test_http_concurrent_requests_share_batches(server):

@@ -93,7 +93,8 @@ def test_models_cost_prints_the_jax_line(capsys):
                      "--device", "cpu"]) == 0
     line = capsys.readouterr().out.splitlines()[-1]
     cfg = MGPSTRConfig(variant="tiny")
-    n = sum(p.numel() for p in MGPSTR(cfg, device="cpu").parameters())
+    # the model's parameter count, built on the meta device (no weights)
+    n = sum(p.numel() for p in MGPSTR(cfg, device="meta").parameters())
     assert line == (f"cost[mgp_str-tiny]: params={n / 1e6:.2f}M  "
                     f"fwd={2 * mgp_str_macs(cfg) / 1e9:.2f} GFLOPs "
                     f"(B=1 32x128)")

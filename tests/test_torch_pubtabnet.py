@@ -19,6 +19,7 @@ from advancedliteratemachinery_tpu.codecs import coords as jcoords
 from advancedliteratemachinery_tpu.data import pubtabnet as jptn
 from advancedliteratemachinery_tpu_torch.codecs import coords
 from advancedliteratemachinery_tpu_torch.data import pubtabnet as ptn
+from advancedliteratemachinery_tpu_torch.data.lmdb_writer import image_size
 
 TEXT = "ab<&>1 xyz"
 INLINE = ["<b>", "</b>", "<i>", "</i>", "<sup>", "</sup>"]
@@ -163,13 +164,23 @@ def test_dataset_matches_jax_and_reads_sizes_from_headers(tmp_path):
 
 
 def test_dataset_names_an_unread_format(tmp_path):
-    rec = seeded_record(3, "t.bmp")
-    Image.fromarray(np.zeros((9, 9, 3), np.uint8)).save(tmp_path / "t.bmp")
+    """A WebP page is named; BMP, GIF and TIFF pages (the TIFF turned by
+    its Orientation), unread before their decoders were ported, give
+    PIL's size."""
+    rec = seeded_record(3, "t.webp")
+    (tmp_path / "t.webp").write_bytes(b"RIFF\0\0\0\0WEBPVP8 " + bytes(20))
     data = tmp_path / "d.jsonl"
     data.write_text(json.dumps(rec) + "\n")
     ds = ptn.PubTabNetDataset(str(data), str(tmp_path), chars="ab")
-    with pytest.raises(ValueError, match="BMP"):
+    with pytest.raises(ValueError, match="WebP"):
         ds[0]
+    page = Image.fromarray(np.zeros((9, 13, 3), np.uint8))
+    for name, kw in (("t.bmp", {}), ("t.gif", {}),
+                     ("t.tif", {"tiffinfo": {274: 6}})):
+        page.save(tmp_path / name, **kw)
+        with Image.open(tmp_path / name) as im:
+            want = im.size[::-1]
+        assert image_size((tmp_path / name).read_bytes()) == want, name
 
 
 def seeded_outputs(v, seed, n=128, length=6):

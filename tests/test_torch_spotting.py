@@ -33,7 +33,8 @@ from advancedliteratemachinery_tpu_torch.models.vit import ViTConfig
 from advancedliteratemachinery_tpu_torch.ops.cc_extract import (
     extract_boxes_device)
 from advancedliteratemachinery_tpu_torch.ops.image import crop_rects
-from test_torch_mgp_str import FAST_COMPILE, VIT, VOCABS, random_flax_tree
+from test_torch_mgp_str import (
+    FAST_COMPILE, VIT, VOCABS, fast_jit, random_flax_tree)
 
 torch.set_num_threads(2)
 
@@ -51,28 +52,28 @@ def test_spotting_slice_matches():
         for c in range(2):
             template[6 + 20 * r: 16 + 20 * r, 6 + 46 * c: 40 + 46 * c] = 1.0
 
+    tdet = DBDetector(DBConfig(**DB_CFG), policy=FP32_POLICY, device="cpu")
+    trec = MGPSTR(MGPSTRConfig(vit=ViTConfig(**VIT), **VOCABS),
+                  policy=FP32_POLICY, device="cpu")
     jdet = JDBDetector(JDBConfig(**DB_CFG), policy=J_FP32)
-    dvars = random_flax_tree(jdet, jnp.zeros((1, PH, PW, 3)), seed=1)
+    dvars = random_flax_tree(jdet, seed=1, like=tdet)
     dvars["params"]["prob_up2"]["kernel"][...] = 1e-4
     dvars["params"]["prob_up2"]["bias"][...] = -8.0
     jrec = JMGPSTR(JConfig(vit=JViTConfig(**VIT), **VOCABS), policy=J_FP32)
-    rparams = random_flax_tree(jrec, jnp.zeros((1, 32, 128, 3)),
-                               seed=2)["params"]
+    rparams = random_flax_tree(jrec, seed=2, like=trec)["params"]
     jengine = JInference(jrec, rparams, CharCodec(), input_dtype=jnp.float32,
                          fused_decode="never")
 
     prob = jnp.maximum(jax.jit(jdet.apply, compiler_options=FAST_COMPILE)(
         dvars, jnp.asarray(pages))
                        ["prob"][..., 0], template[None])
-    jq, js, jv = j_extract(prob, max_boxes=K)
-    crops = j_crop(jnp.asarray(pages), jq, dtype=jnp.float32)
+    jq, js, jv = fast_jit(j_extract, prob, max_boxes=K)(prob)
+    crops = fast_jit(j_crop, jnp.asarray(pages), jq, dtype=jnp.float32)(
+        jnp.asarray(pages), jq)
     want = jax.jit(jengine._decode_all, compiler_options=FAST_COMPILE)(
         jengine.params, crops.reshape(P * K, 32, 128, 3))
 
-    tdet = DBDetector(DBConfig(**DB_CFG), policy=FP32_POLICY, device="cpu")
     load_flax_params(tdet, dvars["params"], dvars["batch_stats"])
-    trec = MGPSTR(MGPSTRConfig(vit=ViTConfig(**VIT), **VOCABS),
-                  policy=FP32_POLICY, device="cpu")
     load_flax_params(trec, rparams)
     tengine = MGPSTRInference(trec, TCharCodec(), input_dtype=torch.float32,
                               device="cpu")

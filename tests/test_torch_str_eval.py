@@ -53,6 +53,7 @@ from advancedliteratemachinery_tpu_torch.models.mgp_str import MGPSTRConfig
 from advancedliteratemachinery_tpu_torch.models.vit import ViTConfig
 from advancedliteratemachinery_tpu_torch.pipelines.file_loading import (
     load_image)
+from test_torch_mgp_str import fast_engine
 
 torch.set_num_threads(2)
 
@@ -169,6 +170,38 @@ def test_image_check_matches_pil_verify():
     assert cases > 1000
 
 
+def test_image_check_matches_pil_verify_on_bmp_gif_tiff():
+    """`image_check` follows PIL's BMP, GIF and TIFF plugins' `_open`
+    (their `verify()` checks nothing more): it passes exactly what PIL's
+    `open` + `verify` passes on files PIL writes (BMP of four modes, GIF,
+    TIFF uncompressed, LZW, Deflate and PackBits, little- and big-endian),
+    every 5th truncation and seeded byte flips of the headers and IFDs."""
+    rng = np.random.default_rng(8)
+    base = rng.integers(0, 256, (13, 21, 3), np.uint8)
+    rgb = Image.fromarray(base)
+    files = [encoded(rgb.convert(m), "BMP") for m in ("1", "L", "P", "RGB")]
+    files += [encoded(rgb, "GIF"), encoded(rgb.convert("L"), "GIF")]
+    files += [encoded(rgb.convert(m), "TIFF", compression=c)
+              for m in ("1", "L", "RGB", "CMYK")
+              for c in ("raw", "tiff_lzw", "tiff_deflate", "packbits")]
+    files.append(encoded(Image.fromarray(base[..., 0].astype(np.uint16)
+                                         * 257).convert("I;16B"), "TIFF"))
+    cases = passed = 0
+    for data in files:
+        variants = [data] + [data[:k] for k in range(0, len(data), 5)]
+        for _ in range(60):
+            bad = bytearray(data)
+            at = int(rng.integers(0, min(len(bad), 300)))
+            bad[at] ^= 1 << int(rng.integers(0, 8))
+            variants.append(bytes(bad))
+        for v in variants:
+            ok = pil_verifies(v)
+            assert (twriter.image_check(v) is None) == ok, (
+                len(v), twriter.image_check(v))
+            cases, passed = cases + 1, passed + ok
+    assert cases > 2000 and 0.2 < passed / cases < 0.9
+
+
 def test_create_str_lmdb_keeps_what_the_jax_writer_keeps(tmp_path, capsys):
     """The same samples kept and skipped, and (every kept image past the
     1000 bytes of an inline value, so that the JAX writer's leaves fit)
@@ -230,15 +263,24 @@ def test_dataset_items_match_jax(tmp_path):
 
 
 def test_dataset_names_formats_it_cannot_decode(tmp_path):
-    """A progressive JPEG cut after its first two scans (which
-    libjpeg-turbo would block-smooth), BMP and GIF."""
+    """WebP and JPEG-in-TIFF raise naming the format; a progressive JPEG
+    cut after its first two scans (which libjpeg-turbo block-smooths),
+    BMP and GIF, which raised before their decoders were ported, decode
+    to PIL's `convert("RGB")`."""
     from test_torch_image_decode import keep_scans
     files = sample_files(np.random.default_rng(6))
     early = keep_scans(files["jpg_progressive"], (0, 1))
-    path = dataset_lmdb(tmp_path, [early, files["bmp"], files["gif"]],
-                        ["a", "b", "c"])
+    rgb = Image.fromarray(np.random.default_rng(7).integers(
+        0, 256, (19, 37, 3), np.uint8))
+    decoded = [early, files["bmp"], files["gif"]]
+    refused = [b"RIFF\0\0\0\0WEBPVP8 " + bytes(20),
+               encoded(rgb, "TIFF", compression="jpeg")]
+    path = dataset_lmdb(tmp_path, decoded + refused, list("abcde"))
     ds = tds.LmdbStrDataset(path)
-    for i, word in enumerate(("(?i)progressive", "BMP", "GIF")):
+    for i, data in enumerate(decoded):
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        np.testing.assert_array_equal(ds[i][0], want)
+    for i, word in enumerate(("WebP", "JPEG-in-TIFF"), len(decoded)):
         with pytest.raises(ValueError, match=word):
             ds[i]
 
@@ -421,11 +463,16 @@ def test_eval_cli_matches_jax(eval_sets, monkeypatch, capsys):
         jmgp.MGPSTR, policy=J_FP32))
     monkeypatch.setattr(tmgp, "MGPSTR", functools.partial(
         tmgp.MGPSTR, policy=FP32_POLICY))
-    seen = []
+    seen, built = [], []
     make = jcli._rec_engine
 
     def recording(args):
+        # the JAX CLI's engine, its run compiled op by op (FAST_COMPILE)
+        # for the runner's padded batches of 4; kept for the second run
         engine = make(args)
+        fast_engine(engine, engine.params, np.zeros((4, 32, 128, 3),
+                                                    np.uint8))
+        built.append(engine)
         recognize = engine.recognize
 
         def record(batch):
@@ -443,7 +490,9 @@ def test_eval_cli_matches_jax(eval_sets, monkeypatch, capsys):
     dirs = write_sets(d, sets, placeholder, "first")
     monkeypatch.setattr(jcli, "_rec_engine", recording)
     run_cli(jcli.main, common + ["--data", *dirs])
-    monkeypatch.setattr(jcli, "_rec_engine", make)
+    engine = built[0]
+    del engine.recognize                   # its own method again
+    monkeypatch.setattr(jcli, "_rec_engine", lambda args: engine)
     strings = [s for batch in seen for s in batch]
     labels, at = {}, 0
     for name, paths in sets.items():

@@ -41,13 +41,16 @@ B, T = 4, 27
 @pytest.fixture(scope="module")
 def flax_pair():
     jm = JMGPSTR(JConfig(vit=JViTConfig(**VIT), **VOCABS), policy=J_FP32)
-    params = random_flax_tree(jm, jnp.zeros((1, 32, 128, 3)))["params"]
+    params = random_flax_tree(jm, like=_port(None))["params"]
     return jm, params
 
 
 def _port(params, policy=FP32_POLICY):
+    """The port's model with `params` (None: as built)."""
     tm = MGPSTR(MGPSTRConfig(vit=ViTConfig(**VIT), **VOCABS), policy=policy,
                 device="cpu")
+    if params is None:
+        return tm
     return load_flax_params(tm, params)
 
 
