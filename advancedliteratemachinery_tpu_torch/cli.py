@@ -16,6 +16,8 @@ commands of `advancedliteratemachinery_tpu/cli.py`):
   ccocr-collect INDEX OUT      run a model over a CC-OCR tree → responses
   ccocr-eval INDEX PRED GT     CC-OCR LMM benchmark harness
   eval-det DT.json GT.json     COCO-protocol detection mAP
+  train MODEL                  launch or resume a training run (mgp_str, db,
+                               lore)
 
 The arguments are the JAX CLI's. Models run on the card unless
 `--device cpu` is given. Weights are seeded at random, or a reference
@@ -34,6 +36,16 @@ model is loaded but reaches no region. Pages and crops are PNG (any bit
 depth, interlaced or not), JPEG (baseline or progressive; gray, YCbCr,
 RGB, CMYK or YCCK), BMP, GIF, TIFF (strips or tiles; none, PackBits,
 LZW, Deflate or CCITT fax) or `.npy` files (`pipelines/file_loading.py`).
+
+`train` takes the JAX command's arguments and trains MGP-STR (LMDB word
+crops, validated on LMDB eval sets), the DB detector (a COCO spotting json
+of `bezier_pts` instances) or LORE-TSR (a COCO table json of cells with
+`logic_axis`) from seeded random weights or, for MGP-STR, a reference
+torch checkpoint (`--init-torch-ckpt`), through `engine/fit.py`, with
+checkpoints under `--ckpt-dir` that `--resume` continues. The JAX
+command's other models wait for their recipes (ROADMAP.md, queue 1) and
+exit with a message; so do `--rand-aug` (the augmentation module), and
+`--fsdp`/`--tp` above 1 (one card).
 
 `read`, `structurize`, `table` and `convert` detect text as the JAX CLI
 does: DB, then the host `extract_boxes` on its probability map
@@ -676,13 +688,145 @@ def cmd_eval_det(args) -> int:
     return 0
 
 
+TRAIN_MODELS = ("mgp_str", "lister", "levocr", "omniparser", "db", "lore",
+                "geolayoutlm", "vlpt", "webrpg", "lvtr", "trcg", "vgt",
+                "gem")
+# the models the port trains; the JAX command's others wait in ROADMAP.md
+TRAIN_PORTED = ("mgp_str", "db", "lore")
+
+
+def _train_model(args):
+    """The model, host batch iterator, (loss_fn, tx) and eval function of
+    `train`'s model, as the JAX `cmd_train` branches build them."""
+    import numpy as np
+
+    from advancedliteratemachinery_tpu_torch.engine import batches as B
+    from advancedliteratemachinery_tpu_torch.engine.train import (
+        make_optimizer)
+
+    device = args.device
+    tx = make_optimizer(lr=args.lr, total_steps=args.steps, grad_clip=5.0,
+                        warmup_steps=args.warmup_steps)
+    size = args.image_size
+    if args.model == "db":
+        from advancedliteratemachinery_tpu_torch.data.coco_spotting import (
+            CocoSpottingDataset)
+        from advancedliteratemachinery_tpu_torch.models import db
+
+        model = db.DBDetector(db.DBConfig(), device=device, seed=args.seed)
+        ds = CocoSpottingDataset(args.img_root or ".", args.train_data[0])
+        batches = B.db_batches(ds, args.batch_size, image_hw=(size, size),
+                               seed=args.seed)
+        loss_fn, _ = B.db_recipe_u8(model)
+        return model, batches, loss_fn, tx, None
+    if args.model == "lore":
+        from advancedliteratemachinery_tpu_torch.models import lore
+
+        model = lore.LORE(lore.LoreConfig(), device=device, seed=args.seed)
+        ds = B.TableDataset(args.img_root or ".", args.train_data[0])
+        batches = B.lore_batches(ds, args.batch_size, image_hw=(size, size),
+                                 seed=args.seed)
+        loss_fn, _ = B.lore_recipe_u8(model)
+        return model, batches, loss_fn, tx, None
+
+    from advancedliteratemachinery_tpu_torch.codecs.char_codec import (
+        CharCodec)
+    from advancedliteratemachinery_tpu_torch.codecs.subword import (
+        BpeCodec, WordpieceCodec)
+    from advancedliteratemachinery_tpu_torch.data.str_dataset import (
+        BalancedMixer, LmdbStrDataset)
+    from advancedliteratemachinery_tpu_torch.engine.infer import (
+        MGPSTRInference)
+    from advancedliteratemachinery_tpu_torch.eval.str_eval import (
+        benchmark_all_eval)
+    from advancedliteratemachinery_tpu_torch.models import mgp_str
+
+    L = args.batch_max_length
+    char_codec = CharCodec(batch_max_length=L)
+    charset = args.charset or char_codec.charset
+    try:
+        bpe = BpeCodec.default(batch_max_length=L)
+        wp = WordpieceCodec.default(batch_max_length=L)
+    except FileNotFoundError:
+        bpe = wp = None
+        print("[train] GPT-2/BERT vocab assets missing — bpe/wp heads "
+              "train on pad-only targets (char head unaffected)")
+    model = mgp_str.MGPSTR(mgp_str.MGPSTRConfig(variant=args.variant,
+                                                batch_max_length=L),
+                           device=device, seed=args.seed)
+    if args.init_torch_ckpt:
+        from advancedliteratemachinery_tpu_torch.engine import checkpoint
+        checkpoint.import_mgp_str(
+            checkpoint.load_torch_state_dict(args.init_torch_ckpt), model)
+    datasets = [LmdbStrDataset(p, charset=charset, max_length=L)
+                for p in args.train_data]
+    mixer = BalancedMixer(datasets, args.ratios or [1.0] * len(datasets),
+                          args.batch_size, seed=args.seed)
+    batches = B.mgp_str_batches(mixer, char_codec, bpe, wp)
+    loss_fn, _ = B.mgp_str_recipe_u8(model)
+
+    def eval_fn(state):
+        engine = MGPSTRInference(state.model, char_codec, bpe, wp,
+                                 device=device)
+        acc = benchmark_all_eval(engine.recognize, args.val_data,
+                                 charset=charset, max_length=L,
+                                 batch_size=args.batch_size,
+                                 device=engine.device)["total_accuracy"]
+        return {"accuracy": float(np.float64(acc))}
+
+    return model, batches, loss_fn, tx, eval_fn
+
+
+def cmd_train(args) -> int:
+    """Launch (or resume) a training run: the JAX `cmd_train` (reference
+    MGP-STR train_final_dist.py:31-238: source mixing, the step loop,
+    valInterval validation with best tracking, periodic checkpoints,
+    log_train.txt) composed from batches → recipe → `engine.fit.fit`, on
+    the card unless `--device cpu`. Prints one JSON line of the run."""
+    from advancedliteratemachinery_tpu_torch.engine.fit import FitConfig, fit
+    from advancedliteratemachinery_tpu_torch.engine.train_extras import (
+        with_accumulation)
+
+    if args.model not in TRAIN_PORTED:
+        raise SystemExit(
+            f"train {args.model}: its recipe is not ported yet (ROADMAP.md, "
+            f"queue 1, item 'Training of the ported families' for lister, "
+            f"levocr and omniparser; 'The rest of the zoo' for the others); "
+            f"the port trains {', '.join(TRAIN_PORTED)}")
+    if args.rand_aug:
+        raise SystemExit("--rand-aug needs data/augment.py, not ported yet "
+                         "(ROADMAP.md, queue 1, 'Training of the ported "
+                         "families', Data)")
+    if args.fsdp > 1 or args.tp > 1:
+        raise SystemExit("--fsdp/--tp: the port trains on one card "
+                         "(ROADMAP.md, queue 1, parallel/)")
+    model, batches, loss_fn, tx, eval_fn = _train_model(args)
+    tx = with_accumulation(tx, args.grad_accum)
+    eval_fn = eval_fn if args.val_data else None
+    cfg = FitConfig(
+        total_steps=args.steps, log_interval=args.log_interval,
+        val_interval=args.val_interval if eval_fn else 0,
+        save_interval=args.save_interval, ckpt_dir=args.ckpt_dir,
+        resume=args.resume, seed=args.seed, profile_dir=args.profile,
+        keep_last=args.keep_last, handle_sigterm=not args.no_sigterm)
+    result = fit(loss_fn, tx, model, batches, cfg, eval_fn=eval_fn,
+                 device=args.device)
+    print(json.dumps({
+        "model": args.model, "steps_run": result.steps_run,
+        "best": result.best_metric,
+        "final_val": result.history[-1] if result.history else None,
+        "ckpt_dir": args.ckpt_dir}))
+    return 0
+
+
 COMMANDS = {"models": cmd_models, "vie": cmd_vie,
             "table-html": cmd_table_html, "table-eval": cmd_table_eval,
             "recognize": cmd_recognize, "read": cmd_read,
             "structurize": cmd_structurize, "table": cmd_table,
             "convert": cmd_convert, "serve": cmd_serve, "eval": cmd_eval,
             "create-lmdb": cmd_create_lmdb, "ccocr-eval": cmd_ccocr_eval,
-            "ccocr-collect": cmd_ccocr_collect, "eval-det": cmd_eval_det}
+            "ccocr-collect": cmd_ccocr_collect, "eval-det": cmd_eval_det,
+            "train": cmd_train}
 
 
 def _common(p, model: bool = True) -> None:
@@ -859,6 +1003,54 @@ def parse_args(argv=None) -> argparse.Namespace:
                                       "xywh, score}] or COCO results file")
     p.add_argument("ground_truth", help="[{image_id, category_id, bbox}] "
                                         "or a full COCO annotation file")
+
+    p = sub.add_parser("train", help="launch/resume a training run")
+    p.add_argument("model", choices=TRAIN_MODELS)
+    p.add_argument("--train-data", nargs="+", required=True,
+                   help="LMDB source dirs (mixed per --ratios); for db: a "
+                        "COCO spotting json; for lore: a COCO table json")
+    p.add_argument("--img-root", help="page folder (db, lore)")
+    p.add_argument("--image-size", type=int, default=640,
+                   help="train page size (db, lore)")
+    p.add_argument("--ratios", nargs="+", type=float,
+                   help="per-source batch ratios (default: equal)")
+    p.add_argument("--val-data", nargs="+", default=[],
+                   help="LMDB eval dirs (benchmark_all_eval protocol; "
+                        "mgp_str)")
+    p.add_argument("--variant", default="base",
+                   choices=["tiny", "small", "base", "large"])
+    p.add_argument("--batch-size", type=int, default=128)
+    p.add_argument("--steps", type=int, default=100_000)
+    p.add_argument("--lr", type=float, default=1e-4)
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--batch-max-length", type=int, default=25)
+    p.add_argument("--charset", help="override the codec charset")
+    p.add_argument("--log-interval", type=int, default=100)
+    p.add_argument("--val-interval", type=int, default=2000)
+    p.add_argument("--save-interval", type=int, default=5000)
+    p.add_argument("--ckpt-dir", required=True)
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--keep-last", type=int, default=3,
+                   help="step_N checkpoints retained (0 = all)")
+    p.add_argument("--no-sigterm", action="store_true",
+                   help="disable the save-and-stop SIGTERM hook")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="refused above 1: one card")
+    p.add_argument("--tp", type=int, default=1,
+                   help="refused above 1: one card")
+    p.add_argument("--init-torch-ckpt",
+                   help="initialise from a reference torch checkpoint "
+                        "(mgp_str)")
+    p.add_argument("--profile", metavar="DIR",
+                   help="write a torch.profiler trace of a few train steps")
+    p.add_argument("--grad-accum", type=int, default=1,
+                   help="gradient accumulation steps (optax MultiSteps)")
+    p.add_argument("--rand-aug", action="store_true",
+                   help="refused: data/augment.py is not ported yet")
+    p.add_argument("--device", default=None,
+                   help="torch device (default: the CUDA card; 'cpu' runs "
+                        "the plain versions on the CPU)")
 
     args = parser.parse_args(argv)
     _refuse_unported(args)

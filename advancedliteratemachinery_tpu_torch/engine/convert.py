@@ -19,6 +19,13 @@ The LISTER baselines' GRU (`models/lister_baselines.py`) is flax's
 `GRUCell` as its six Dense (`ir`, `iz`, `in`, `hr`, `hz`, `hn`, biases on
 `ir`, `iz`, `in` and `hn` only), so the Dense rule maps it.
 
+A tree made under flax's `train=True` carries the running statistics of
+every BatchNorm in `batch_stats`; they land in the port's BatchNorm
+buffers. Parameters a JAX module makes only under `train=True` (DB's
+threshold head `thresh_*`) are named by the port's module in
+`FLAX_TRAIN_ONLY`: a tree without them (an inference init) still maps, and
+they keep the module's own values.
+
 Other leaves (biases, LORE's std-norm `*_alpha`/`*_bias`, the FocalNet
 and LISTER layerscale gammas, LISTER's `eos_emb`, `kv_pos_bias` and its
 navigator's [C, C] `weight` and 0-d `bias`) carry over as they are.
@@ -74,9 +81,11 @@ def flax_state_dict(module: nn.Module, params: Mapping,
         sd[f"{path}.{_STAT_LEAVES[leaf]}"] = torch.from_numpy(
             np.array(v, dtype=np.float32))
     want = module.state_dict()
-    for k, v in want.items():      # torch-only BN counter, no flax twin
-        if k.endswith("num_batches_tracked") and k not in sd:
-            sd[k] = torch.zeros_like(v)
+    train_only = getattr(module, "FLAX_TRAIN_ONLY", ())
+    for k, v in want.items():
+        if k not in sd and (k.endswith("num_batches_tracked")  # torch-only
+                            or k.startswith(train_only)):
+            sd[k] = v.detach().cpu().clone()
     missing = sorted(set(want) - set(sd))
     unused = sorted(set(sd) - set(want))
     if missing or unused:

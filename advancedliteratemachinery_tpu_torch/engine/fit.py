@@ -10,8 +10,9 @@ checkpoints, a plain-text `log_train.txt`).
 
 The checkpoint format is the port's own and is not compatible with the JAX
 package's Orbax checkpoints: each checkpoint is a directory holding one
-`torch.save` file of the step, the model's state dict and the optimiser's
-state dict. A directory is written under a temporary sibling name and
+`torch.save` file of the step, the model's state dict (with the BatchNorm
+running statistics of the models that have them), the optimiser's state
+dict and the gradients accumulated since the last update, if any. A directory is written under a temporary sibling name and
 renamed into place, so a kill mid-write never leaves a half-written
 `step_N`; named slots (`best`) go through `{name}.new` → `{name}.old` so
 that the previous slot survives until its replacement is in place.
@@ -98,7 +99,8 @@ def save_train_state(ckpt_dir: str, state: TrainState, step: int,
             shutil.rmtree(stale)
     os.makedirs(tmp)
     torch.save({"step": state.step, "params": state.model.state_dict(),
-                "opt_state": state.optimizer.state_dict()},
+                "opt_state": state.optimizer.state_dict(),
+                "accum": state.accum},
                os.path.join(tmp, STATE_FILE))
     os.rename(tmp, target)
     if name is not None:
@@ -127,7 +129,8 @@ def gc_checkpoints(ckpt_dir: Optional[str], keep_last: int) -> None:
 
 def restore_train_state(path: str, state: TrainState) -> TrainState:
     """Load a checkpoint written by `save_train_state` into `state` (its
-    model and optimiser, in place) and return it. Falls back to
+    model with its BatchNorm running statistics, its optimiser and any
+    accumulated gradients, in place) and return it. Falls back to
     `{path}.old` when `path` is missing (the rename window of a named-slot
     save interrupted between its two renames)."""
     path = os.path.abspath(path)
@@ -141,6 +144,11 @@ def restore_train_state(path: str, state: TrainState) -> TrainState:
     state.model.load_state_dict(got["params"])
     state.optimizer.load_state_dict(got["opt_state"])
     state.step = int(got["step"])
+    accum = got.get("accum")
+    if accum is not None:
+        device = next(state.model.parameters()).device
+        accum = [a.to(device) for a in accum]
+    state.accum = accum
     return state
 
 

@@ -12,7 +12,17 @@ reproducing the JAX package's optax chain
   `weight_decay > 0` (optax's `adamw`: the decay is scaled by the learning
   rate, as torch's `AdamW`);
 - the learning rate of update n is the schedule at n, the count of updates
-  made before it, as optax evaluates it.
+  made before it, as optax evaluates it;
+- with gradient accumulation (`engine/train_extras.py`
+  `with_accumulation`, optax `MultiSteps`) a step only folds its
+  gradients into a running mean, and every `every`-th step clips that
+  mean and takes the update.
+
+Models with BatchNorm (LORE's DLA, DB) need no state beside the model: the
+running statistics are the BatchNorm modules' buffers, which a train-mode
+forward updates (`models/layers.py` `batch_norm`) and `state_dict()`
+carries into checkpoints, where the JAX package keeps a `batch_stats`
+collection in its `MutableTrainState`.
 
 One device only: the JAX package's mesh sharding (`parallel/`) has no
 counterpart here yet. The state is mutable: a step updates the model's
@@ -23,7 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -34,6 +44,24 @@ LossFn = Callable[[Dict[str, torch.Tensor], torch.Generator],
 
 ADAM_BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
+
+
+def warmup_cosine(lr: float, warmup_steps: int,
+                  total_steps: int) -> Callable[[int], float]:
+    """optax `warmup_cosine_decay_schedule(0, lr, warmup_steps,
+    total_steps)` as a function of the update count: linear from 0 to lr
+    over the warm-up, then a cosine to 0 over the remaining steps, held at
+    0 after them; with no warm-up, `cosine_decay_schedule(lr,
+    total_steps)`."""
+    decay_steps = total_steps - warmup_steps
+
+    def schedule(count: int) -> float:
+        if count < warmup_steps:
+            return lr * count / warmup_steps
+        count = min(count - warmup_steps, decay_steps)
+        return lr * 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+
+    return schedule
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,20 +75,14 @@ class OptimizerConfig:
     grad_clip: float = 5.0
     weight_decay: float = 0.0
     warmup_steps: int = 0
+    every: int = 1          # steps whose gradients make one update
 
     def schedule(self, count: int) -> float:
         """optax `cosine_decay_schedule(lr, total_steps)`, or with warm-up
-        `warmup_cosine_decay_schedule(0, lr, warmup_steps, total_steps)`:
-        linear from 0 to lr over the warm-up, then a cosine to 0 over the
-        remaining steps, held at 0 after them."""
-        decay_steps = self.total_steps
-        if self.warmup_steps > 0:
-            if count < self.warmup_steps:
-                return self.lr * count / self.warmup_steps
-            count -= self.warmup_steps
-            decay_steps -= self.warmup_steps
-        count = min(count, decay_steps)
-        return self.lr * 0.5 * (1.0 + math.cos(math.pi * count / decay_steps))
+        `warmup_cosine_decay_schedule(0, lr, warmup_steps, total_steps)`
+        (`warmup_cosine`)."""
+        return warmup_cosine(self.lr, self.warmup_steps,
+                             self.total_steps)(count)
 
     def create(self, params) -> torch.optim.Optimizer:
         params = list(params)
@@ -95,39 +117,71 @@ def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float
     return norm
 
 
+def unreached_zero(params: Iterable[torch.Tensor]) -> torch.Tensor:
+    """0 · Σ p over `params`: added to a loss that does not reach them, it
+    gives each the zero gradient `jax.grad` gives a leaf outside the loss
+    (torch leaves its `.grad` None, which `apply_gradients` refuses as a
+    cut graph). Adam moves no parameter on zero gradients."""
+    return sum(p.sum() for p in params) * 0.0
+
+
 @dataclasses.dataclass
 class TrainState:
-    """`step` counts the updates made; `model` holds the parameters and
-    `optimizer` their Adam moments."""
+    """`step` counts the steps taken (updates made, unless gradients
+    accumulate over `tx.every` steps); `model` holds the parameters and
+    the BatchNorm running statistics, `optimizer` the Adam moments, and
+    `accum` the running mean of the gradients since the last update."""
 
     step: int
     model: nn.Module
     optimizer: torch.optim.Optimizer
     tx: OptimizerConfig
+    accum: Optional[List[torch.Tensor]] = None
 
     @classmethod
     def create(cls, model: nn.Module, tx: OptimizerConfig) -> "TrainState":
         return cls(step=0, model=model, optimizer=tx.create(
             p for p in model.parameters() if p.requires_grad), tx=tx)
 
-    def apply_gradients(self) -> torch.Tensor:
+    def apply_gradients(self) -> Optional[torch.Tensor]:
         """Clip the gradients the last backward left, then take one
         optimiser step at the schedule's rate. Every trainable parameter
         must have a gradient (as every leaf has one under `jax.grad`): a
         missing one means the graph was cut, and raises. Returns the global
-        gradient norm before the clip."""
+        gradient norm before the clip.
+
+        With `tx.every` > 1 the gradients first join the running mean of
+        the steps since the last update, `acc += (g − acc) / (n + 1)` (optax
+        `MultiSteps`); only the `every`-th step clips that mean and
+        updates, at the schedule's rate for the count of updates made.
+        The other steps return None."""
         params = [p for g in self.optimizer.param_groups for p in g["params"]]
         missing = [n for n, p in self.model.named_parameters()
                    if p.requires_grad and p.grad is None]
         if missing:
             raise RuntimeError(f"no gradient reached {missing}")
+        every = self.tx.every
+        updates = self.step // every
+        if every > 1:
+            if self.accum is None:
+                self.accum = [torch.zeros_like(p) for p in params]
+            n = self.step % every
+            for a, p in zip(self.accum, params):
+                a.add_((p.grad - a) / (n + 1))
+            self.step += 1
+            if n + 1 < every:
+                return None
+            for a, p in zip(self.accum, params):
+                p.grad = a.clone()
+                a.zero_()
         norm = clip_by_global_norm([p.grad for p in params],
                                    self.tx.grad_clip)
-        lr = self.tx.schedule(self.step)
+        lr = self.tx.schedule(updates)
         for group in self.optimizer.param_groups:
             group["lr"] = lr
         self.optimizer.step()
-        self.step += 1
+        if every == 1:
+            self.step += 1
         return norm
 
 

@@ -3,15 +3,20 @@
 
 ResNet-18 backbone → FPN → per-level laterals concatenated at 1/4 →
 probability head (conv3x3+BN+relu → 1x1 conv + pixel shuffle + BN + relu →
-1x1 conv + pixel shuffle → sigmoid). Only the probability head is built:
-the threshold head exists for training. The JAX package's space-to-depth
+1x1 conv + pixel shuffle → sigmoid). In `train()` mode a threshold head of
+the same form (`thresh_*`) runs too, and the differentiable binarization
+b = sigmoid(k·(prob − thresh)) in float32; BatchNorm then normalises with
+the batch's statistics and updates the running ones, as flax's
+`train=True` with `mutable=["batch_stats"]`. The JAX package's
+space-to-depth
 stem is a TPU rewrite of an ordinary 7x7 stride-2 convolution over the same
 (7, 7, C, F) kernel, and is one `conv2d` here. Pages come in NHWC, as in the
 JAX package, and the network runs in NCHW inside.
 
 `extract_boxes` is the JAX package's host DB post-processing without cv2:
 the cv2 calls it makes (contours, min-area rectangles, polygon fill) are
-`ops/contours.py`'s. `make_db_detect_fn` is the document pipelines'
+`ops/contours.py`'s, and so are those of `db_targets`, the training maps
+(polygon fill, polylines, the L2 distance transform). `make_db_detect_fn` is the document pipelines'
 detect function, the JAX CLI's `_db_detect_fn`: the page resized on the
 device, the probability map read back once, boxes from `extract_boxes`.
 """
@@ -33,8 +38,8 @@ from advancedliteratemachinery_tpu_torch.core.registry import MODELS
 from advancedliteratemachinery_tpu_torch.models.layers import (
     BN_EPS, batch_norm, conv2d, init_params)
 from advancedliteratemachinery_tpu_torch.ops.contours import (
-    arc_length, box_points, contour_area, fill_poly_window, find_contours,
-    min_area_rect)
+    arc_length, box_points, contour_area, distance_transform,
+    fill_poly_window, find_contours, min_area_rect, polyline_window)
 from advancedliteratemachinery_tpu_torch.ops.image import (
     as_device_tensor, resize_linear_u8)
 
@@ -81,12 +86,18 @@ class DBConfig:
     width: int = 64           # resnet-18 base width
     fpn_dim: int = 256
     head_dim: int = 64
+    k: float = 50.0           # binarization steepness
 
 
 @MODELS.register("db_detector")
 class DBDetector(nn.Module):
-    """Built on `device` (the GPU unless `device="cpu"`), with random weights
-    from `seed`; load real weights with `engine.convert`."""
+    """Built on `device` (the GPU unless `device="cpu"`), in eval mode, with
+    random weights from `seed`; load real weights with `engine.convert`.
+    A flax tree made for inference has no threshold head; those parameters
+    then keep their values (`FLAX_TRAIN_ONLY`)."""
+
+    # parameters the JAX module makes only under train=True
+    FLAX_TRAIN_ONLY = ("thresh_",)
 
     def __init__(self, config: DBConfig = DBConfig(),
                  policy: Policy = DEFAULT_POLICY,
@@ -111,16 +122,31 @@ class DBDetector(nn.Module):
             self.add_module(f"lat{i}", nn.Conv2d(ch, cfg.fpn_dim, 1))
             self.add_module(f"smooth{i}", nn.Conv2d(cfg.fpn_dim, cfg.head_dim,
                                                     3, padding=1))
-        self.prob_c = ConvBNRelu(4 * cfg.head_dim, cfg.head_dim, policy=p)
-        self.prob_up1 = nn.Conv2d(cfg.head_dim, 4 * cfg.head_dim, 1)
-        self.prob_bn1 = nn.BatchNorm2d(cfg.head_dim, eps=BN_EPS)
-        self.prob_up2 = nn.Conv2d(cfg.head_dim, 4, 1)
+        for name in ("prob", "thresh"):
+            self.add_module(f"{name}_c", ConvBNRelu(
+                4 * cfg.head_dim, cfg.head_dim, policy=p))
+            self.add_module(f"{name}_up1", nn.Conv2d(
+                cfg.head_dim, 4 * cfg.head_dim, 1))
+            self.add_module(f"{name}_bn1", nn.BatchNorm2d(cfg.head_dim,
+                                                          eps=BN_EPS))
+            self.add_module(f"{name}_up2", nn.Conv2d(cfg.head_dim, 4, 1))
         init_params(self, torch.Generator().manual_seed(seed))
-        self.to(device)
+        self.to(device).eval()
+
+    def _head(self, name: str, fuse: torch.Tensor) -> torch.Tensor:
+        """conv3x3+BN+relu → 1x1 conv + pixel shuffle (a 2x2 stride-2
+        transposed conv) + BN + relu → 1x1 conv + pixel shuffle → sigmoid,
+        NCHW [B, 1, H, W] float32."""
+        c = self.policy.compute_dtype
+        h = getattr(self, f"{name}_c")(fuse)              # [B, hd, H/4, W/4]
+        h = F.pixel_shuffle(conv2d(h, getattr(self, f"{name}_up1"), c), 2)
+        h = F.relu(batch_norm(h, getattr(self, f"{name}_bn1")).to(c))
+        h = F.pixel_shuffle(conv2d(h, getattr(self, f"{name}_up2"), c), 2)
+        return torch.sigmoid(h.float())
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images [B, H, W, 3] (H, W multiples of 32) → {"prob": [B, H, W, 1]
-        float32}."""
+        float32}, and in `train()` mode "thresh" and "binary" too."""
         c = self.policy.compute_dtype
         x = self.stem(images.to(c).permute(0, 3, 1, 2))
         x = F.max_pool2d(x, 3, 2, padding=1)
@@ -143,11 +169,15 @@ class DBDetector(nn.Module):
             if o.shape[-2:] != size:
                 o = F.interpolate(o, size=size, mode="nearest")
             outs.append(o)
-        h = self.prob_c(torch.cat(outs, dim=1))          # [B, 4*hd, H/4, W/4]
-        h = F.pixel_shuffle(conv2d(h, self.prob_up1, c), 2)        # 1/4 → 1/2
-        h = F.relu(batch_norm(h, self.prob_bn1).to(c))
-        h = F.pixel_shuffle(conv2d(h, self.prob_up2, c), 2)       # full, 1ch
-        return {"prob": torch.sigmoid(h.float()).permute(0, 2, 3, 1)}
+        fuse = torch.cat(outs, dim=1)                    # [B, 4*hd, H/4, W/4]
+        prob = self._head("prob", fuse)
+        out = {"prob": prob.permute(0, 2, 3, 1)}
+        if self.training:
+            thresh = self._head("thresh", fuse)
+            out["thresh"] = thresh.permute(0, 2, 3, 1)
+            out["binary"] = torch.sigmoid(
+                self.config.k * (prob - thresh)).permute(0, 2, 3, 1)
+        return out
 
 
 # the elements NumPy's reductions take at a time (np.getbufsize())
@@ -252,3 +282,77 @@ def make_db_detect_fn(model: DBDetector, box_thresh: float = 0.3):
         return quads.astype(np.float32), scores
 
     return detect
+
+
+# ---------------- host-side training targets ----------------
+
+
+def _offset_poly(poly: np.ndarray, dist: float) -> np.ndarray:
+    """Offset a polygon outward (dist > 0) or inward along the centre-to-
+    vertex directions, the approximation `extract_boxes` unclips with."""
+    center = poly.mean(axis=0)
+    vec = poly - center
+    norm = np.linalg.norm(vec, axis=1, keepdims=True) + 1e-6
+    return poly + vec / norm * dist
+
+
+def _window(pts: np.ndarray, H: int, W: int):
+    """The (y0, y1, x0, x1) window of the page that holds integer points
+    [n, 2], clipped to the page (possibly empty)."""
+    x0, y0 = np.maximum(pts.min(0), 0).tolist()
+    x1, y1 = np.minimum(pts.max(0) + 1, (W, H)).tolist()
+    return y0, max(y1, y0), x0, max(x1, x0)
+
+
+def db_targets(polys, hw: Tuple[int, int], shrink_ratio: float = 0.4,
+               thresh_min: float = 0.3, thresh_max: float = 0.7
+               ) -> Dict[str, np.ndarray]:
+    """The DB paper's training maps from text polygons (the JAX
+    `db_targets`), for polygons [K, 2] in page pixels on a page of `hw`
+    (H, W):
+
+    - gt_prob: each polygon shrunk by d = A(1 − r²)/L, filled with 1;
+    - gt_thresh: thresh_min, ramping up to thresh_max on the polygon's
+      outline over a band to the polygon dilated by d;
+    - thresh_mask: 1 inside the dilated polygons.
+
+    A polygon of fewer than 3 points, area below 1 or perimeter below 1
+    is skipped. cv2's fillPoly, polylines and distanceTransform(DIST_L2,
+    3) are `ops/contours.py`'s; each runs over the window of the page the
+    polygon's band reaches, which gives the same values there as over
+    the whole page (the ramp is zero elsewhere)."""
+    H, W = hw
+    gt_prob = np.zeros((H, W, 1), np.float32)
+    thresh_canvas = np.zeros((H, W), np.float32)
+    thresh_mask = np.zeros((H, W, 1), np.float32)
+    for poly in polys:
+        poly = np.asarray(poly, np.float32).reshape(-1, 2)
+        if len(poly) < 3:
+            continue
+        area = float(contour_area(poly))
+        length = float(arc_length(poly))
+        if area < 1 or length < 1:
+            continue
+        d = area * (1 - shrink_ratio ** 2) / length
+        shrunk = _offset_poly(poly, -d).astype(np.int32)
+        win = _window(shrunk, H, W)
+        if win[1] > win[0] and win[3] > win[2]:
+            gt_prob[win[0]:win[1], win[2]:win[3], 0][
+                fill_poly_window(shrunk, (H, W), win) > 0] = 1.0
+        dilated = _offset_poly(poly, d).astype(np.int32)
+        outline = poly.astype(np.int32)
+        y0, y1, x0, x1 = _window(np.concatenate([dilated, outline]), H, W)
+        if y1 <= y0 or x1 <= x0:
+            continue
+        band = fill_poly_window(dilated, (H, W), (y0, y1, x0, x1))
+        thresh_mask[y0:y1, x0:x1, 0][band > 0] = 1.0
+        # distance to the original polygon's outline, over the window
+        edge = polyline_window(outline, (H, W), (y0, y1, x0, x1))
+        dist = distance_transform(1 - edge)
+        ramp = np.clip(1.0 - dist / max(d, 1e-6), 0.0, 1.0) * band
+        np.maximum(thresh_canvas[y0:y1, x0:x1], ramp,
+                   out=thresh_canvas[y0:y1, x0:x1])
+    gt_thresh = (thresh_min
+                 + (thresh_max - thresh_min) * thresh_canvas)[..., None]
+    return {"gt_prob": gt_prob, "gt_thresh": gt_thresh.astype(np.float32),
+            "thresh_mask": thresh_mask}

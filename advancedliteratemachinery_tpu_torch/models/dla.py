@@ -6,10 +6,13 @@ DocXLayout, reference dlav0_subfield.py).
 Maps come in and go out NHWC, as in the JAX package. Inside, the network
 runs in NCHW tensors kept in `channels_last` memory, so the NHWC view that
 each deformable conv (`ops/deform_conv.py`) takes is the same memory and
-costs no copy. Convs use flax's explicit symmetric padding `k // 2`;
-BatchNorm runs in eval mode in float32 (eps 1e-5) on running statistics.
-Submodules carry the flax names, so `engine/convert.py` maps a flax tree
-onto them one to one.
+costs no copy. Convs use flax's explicit symmetric padding `k // 2`.
+BatchNorm runs in float32 (eps 1e-5): in eval mode, the default, as flax's
+`train=False`, on running statistics; in `train()` mode on the batch's
+statistics, updating the running ones as flax's `mutable=["batch_stats"]`
+does (`models/layers.py` `batch_norm`). The transposed up kernels stay
+trainable. Submodules carry the flax names, so `engine/convert.py` maps a
+flax tree onto them one to one.
 """
 
 from __future__ import annotations
@@ -119,6 +122,11 @@ class Tree(nn.Module):
             x1 = self.tree1(x, project)
             x2 = self.tree2(x1)
             return self.root(x2, x1, *children)
+        if self.project is not None and self.training:
+            # flax runs this projection at every level and reads it only at
+            # a leaf; in train mode its BatchNorm still updates its running
+            # statistics, and its parameters get zero gradients
+            self.project(bottom)
         x1 = self.tree1(x)
         children.append(x1)
         return self.tree2(x1, children)
@@ -145,6 +153,13 @@ class DLA(nn.Module):
             self.add_module(f"level{i}", Tree(lv[i], ch[i - 1], ch[i], 2,
                                               level_root=i > 2,
                                               policy=policy))
+
+    def unread_parameters(self) -> List[nn.Parameter]:
+        """The parameters of the projections of Trees above their leaves,
+        which no output reads (their gradients are zero)."""
+        return [p for m in self.modules()
+                if isinstance(m, Tree) and m.levels > 1
+                and m.project is not None for p in m.project.parameters()]
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         x = self.level0(self.base_layer(x))
@@ -314,7 +329,7 @@ class DLASeg(nn.Module):
         for head, _ in cfg.heads:
             if "hm" in head:
                 nn.init.constant_(getattr(self, f"{head}_out").bias, HM_BIAS)
-        self.to(device)
+        self.to(device).eval()
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images [B, H, W, C] → {head: [B, H/4, W/4, classes] float32}."""
@@ -441,7 +456,7 @@ class DLASegV0(nn.Module):
         for head, _ in cfg.heads:
             if "hm" in head:
                 nn.init.constant_(getattr(self, f"{head}_out").bias, HM_BIAS)
-        self.to(device)
+        self.to(device).eval()
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """images [B, H, W, C] → {head: [B, H/4, W/4, classes] float32}."""

@@ -65,6 +65,7 @@ class DocXLayout(nn.Module):
         self.config = config
         self.policy = policy
         self.backbone = DLASegV0(config.seg_config(), policy, device, seed)
+        self.eval()
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Raw head maps: images [B, H, W, 3] → {head: [B, H/4, W/4, C]}."""

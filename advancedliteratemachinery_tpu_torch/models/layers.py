@@ -26,6 +26,7 @@ from advancedliteratemachinery_tpu_torch.ops.attention import (
 
 LN_EPS = 1e-6   # flax nn.LayerNorm default
 BN_EPS = 1e-5   # flax nn.BatchNorm default
+BN_MOMENTUM = 0.9   # flax's momentum: the running statistics' decay
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int,
@@ -80,10 +81,27 @@ def conv2d(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype
 
 
 def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
-    """Eval-mode BatchNorm in float32 on running statistics (NCHW)."""
-    return F.batch_norm(x.float(), bn.running_mean.float(),
-                        bn.running_var.float(), bn.weight.float(),
-                        bn.bias.float(), False, 0.0, bn.eps)
+    """flax `nn.BatchNorm(momentum=BN_MOMENTUM, dtype=float32)` (NCHW), in
+    float32. In eval mode it normalises with the running statistics. In
+    `train()` mode it normalises with the batch's statistics over N, H and
+    W, as flax computes them: the mean and the mean of squares, the
+    variance biased, `max(0, E[x²] − E[x]²)`; and it updates the running
+    statistics in place as flax does, `ra = 0.9·ra + 0.1·batch` (torch's
+    own `training=True` update takes the unbiased variance)."""
+    x = x.float()
+    if not bn.training:
+        return F.batch_norm(x, bn.running_mean.float(),
+                            bn.running_var.float(), bn.weight.float(),
+                            bn.bias.float(), False, 0.0, bn.eps)
+    dims = (0, 2, 3)
+    mean = x.mean(dims)
+    var = ((x * x).mean(dims) - mean * mean).clamp(min=0.0)
+    with torch.no_grad():
+        bn.running_mean.mul_(BN_MOMENTUM).add_(mean, alpha=1 - BN_MOMENTUM)
+        bn.running_var.mul_(BN_MOMENTUM).add_(var, alpha=1 - BN_MOMENTUM)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight.float()
+    return ((x - mean[:, None, None]) * mul[:, None, None]
+            + bn.bias.float()[:, None, None])
 
 
 def linear(x: torch.Tensor, layer: nn.Linear, dtype: torch.dtype

@@ -11,14 +11,22 @@ transformer and a stacker transformer, regress 4 logical coordinates
 
 The attention is plain torch, as it is an einsum outside any Pallas kernel
 in the JAX package. `make_table_predict_fn` gives the
-`pipelines.modules.TableStructureRecognition` callable. Losses and
-training targets are not ported yet.
+`pipelines.modules.TableStructureRecognition` callable.
+
+Training (`LORE.train_logic`, in `train()` mode): the head maps with
+BatchNorm on batch statistics, the ax features gathered at the ground-truth
+centres, and the Processor over them with the cells' padding mask (a
+pairwise mask on the attention scores, -1e9 where either cell is padding).
+The losses are the reference's (losses.py): CornerNet focal on the heat
+map, masked L1 on the gathered corner offsets, and L1 / 4 on the logical
+coordinates. `gaussian_radius`, `draw_gaussian` and `lore_targets` make
+the CenterNet targets on the host (ctdet.py label generation).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -34,12 +42,13 @@ from advancedliteratemachinery_tpu_torch.models.dla import (
 from advancedliteratemachinery_tpu_torch.models.layers import (
     init_params, lecun_normal_, linear)
 from advancedliteratemachinery_tpu_torch.ops.heatmap import (
-    corner_decode, ctdet_4ps_decode, sigmoid_clamped)
+    corner_decode, ctdet_4ps_decode, gather_feat, sigmoid_clamped)
 from advancedliteratemachinery_tpu_torch.ops.image import (
     as_device_tensor, resize_linear_u8)
 
 FF_DIM = 2048     # the vendored transformer's fixed feed-forward width
 NORM_EPS = 1e-6
+MASKED_SCORE = -1e9   # the attention score of a pair with a padded cell
 
 
 class LoreEncoderLayer(nn.Module):
@@ -68,7 +77,11 @@ class LoreEncoderLayer(nn.Module):
              + getattr(self, f"{name}_bias"))
         return h.to(self.policy.compute_dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x [B, T, C]; mask [B, T] (1 a cell, 0 padding) keeps the
+        scores of pairs of cells and sets the others to -1e9
+        (transformer.py:117-123)."""
         c = self.policy.compute_dtype
         h = self._norm(x, "norm1")
         B, T, C = h.shape
@@ -77,6 +90,10 @@ class LoreEncoderLayer(nn.Module):
                                                           hd)
                    for n in ("q", "k", "v"))
         scores = torch.einsum("bthd,bshd->bhts", q, k) / (hd ** 0.5)
+        if mask is not None:
+            m2d = mask[:, None, :, None] * mask[:, None, None, :]
+            scores = torch.where(m2d > 0, scores,
+                                 scores.new_tensor(MASKED_SCORE))
         attn = torch.softmax(scores.float(), dim=-1).to(q.dtype)
         o = torch.einsum("bhts,bshd->bthd", attn, v).reshape(B, T, C)
         x = x + linear(o, self.out, c)
@@ -102,11 +119,12 @@ class LoreTransformer(nn.Module):
         self.dec1 = nn.Linear(hidden, hidden)
         self.dec2 = nn.Linear(hidden, out_dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         c = self.policy.compute_dtype
         x = linear(x, self.in_proj, c)
         for i in range(self.layers):
-            x = getattr(self, f"layer_{i}")(x)
+            x = getattr(self, f"layer_{i}")(x, mask)
         x = linear(F.relu(linear(x, self.dec1, c)), self.dec2, c)
         return F.relu(x).float()
 
@@ -150,10 +168,12 @@ class LoreProcessor(nn.Module):
                                                 cfg.stacking_layers,
                                                 cfg.num_heads, policy)
 
-    def forward(self, feat: torch.Tensor, boxes: torch.Tensor = None
+    def forward(self, feat: torch.Tensor, boxes: torch.Tensor = None,
+                mask: Optional[torch.Tensor] = None
                 ) -> Dict[str, torch.Tensor]:
         """feat [B, K, D] cell features; boxes [B, K, 8] 4-point boxes on
-        the feature map. Returns logic [B, K, 4] (+ stacked_logic)."""
+        the feature map; mask [B, K] the cells that are not padding (all
+        are when None). Returns logic [B, K, 4] (+ stacked_logic)."""
         cfg = self.config
         c = self.policy.compute_dtype
         if feat.shape[-1] != cfg.hidden_size:
@@ -164,13 +184,13 @@ class LoreProcessor(nn.Module):
             ps = torch.round(boxes).clamp(0, cfg.max_fmp_size - 1).long()
             feat = (feat + self.x_pe(ps[:, :, 0]) + self.y_pe(ps[:, :, 1])
                     + self.x_pe(ps[:, :, 2]) + self.y_pe(ps[:, :, 5]))
-        logic = self.tsfm_axis(feat)
+        logic = self.tsfm_axis(feat, mask)
         out = {"logic": logic}
         if cfg.wiz_stacking:
             h = F.relu(linear(logic, self.logi_enc1, c))
             h = F.relu(linear(h, self.logi_enc2, c))
             cat = torch.cat([h, feat.to(h.dtype)], dim=-1)
-            out["stacked_logic"] = self.stacker_tsfm(cat)
+            out["stacked_logic"] = self.stacker_tsfm(cat, mask)
         return out
 
 
@@ -187,6 +207,7 @@ class LORE(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.config = config
+        self.policy = policy
         self.backbone = DLASeg(config.backbone, policy, device, seed)
         self.processor = LoreProcessor(config, policy)
         gen = torch.Generator().manual_seed(seed + 1)
@@ -194,7 +215,7 @@ class LORE(nn.Module):
         for m in self.processor.modules():      # flax Embed's default init
             if isinstance(m, nn.Embedding):
                 lecun_normal_(m.weight, m.weight.shape[1], gen)
-        self.to(device)
+        self.to(device).eval()
 
     def forward(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Raw head maps: images [B, H, W, 3] → {head: [B, H/4, W/4, C]}."""
@@ -227,6 +248,57 @@ class LORE(nn.Module):
         return res
 
 
+    def train_logic(self, images: torch.Tensor, ct_inds: torch.Tensor,
+                    ct_mask: torch.Tensor,
+                    gt_boxes: Optional[torch.Tensor] = None
+                    ) -> Tuple[Dict[str, torch.Tensor],
+                               Dict[str, torch.Tensor]]:
+        """The training path (classifier.py:94-118 in training mode): the
+        head maps, then the Processor over the ax features gathered at the
+        ground-truth centres `ct_inds` [B, K] (flat indices into the
+        output map), with `ct_mask` [B, K] as its attention mask and
+        `gt_boxes` [B, K, 8] for its position embeddings. BatchNorm
+        follows the module's mode: call `train()` first, as the train
+        step does. Returns (head maps, logic)."""
+        out = self.backbone(images)
+        ax_feat = gather_feat(out["ax"], ct_inds)
+        return out, self.processor(ax_feat, gt_boxes, mask=ct_mask)
+
+
+# ---------------- losses (losses.py) ----------------
+
+
+def focal_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """CornerNet's modified focal loss (losses.py:10); pred in (0, 1)."""
+    pos = (gt == 1.0).float()
+    neg = 1.0 - pos
+    neg_w = (1.0 - gt) ** 4
+    pos_loss = torch.log(pred) * (1 - pred) ** 2 * pos
+    neg_loss = torch.log(1 - pred) * pred ** 2 * neg_w * neg
+    num_pos = pos.sum()
+    total = pos_loss.sum() + neg_loss.sum()
+    return torch.where(num_pos == 0, -neg_loss.sum(),
+                       -total / num_pos.clamp(min=1.0))
+
+
+def reg_l1_loss(pred: torch.Tensor, mask: torch.Tensor,
+                target: torch.Tensor) -> torch.Tensor:
+    """Masked L1 of gathered regressions (losses.py:97): pred and target
+    [B, K, D], mask [B, K]; the denominator counts the mask expanded over
+    D, as the reference's `mask.expand_as(pred).sum()`."""
+    m = mask[..., None].float().expand_as(pred)
+    loss = (pred * m - target * m).abs().sum()
+    return loss / (m.sum() + 1e-4)
+
+
+def axis_loss(pred: torch.Tensor, mask: torch.Tensor,
+              target: torch.Tensor) -> torch.Tensor:
+    """L1 of the logical coordinates / 4 (losses.py:54)."""
+    m = mask[..., None].float()
+    loss = (pred * m - target * m).abs().sum()
+    return loss / (4 * (m.sum() + 1e-4))
+
+
 def make_table_predict_fn(model: LORE, input_size: int = 512,
                           down_ratio: int = 4, score_thresh: float = 0.3):
     """→ predict_fn(image_u8) for
@@ -255,3 +327,86 @@ def make_table_predict_fn(model: LORE, input_size: int = 512,
                 "logi_coords": logic[keep]}
 
     return predict
+
+
+# ---------------- host-side training targets ----------------
+
+
+def gaussian_radius(det_size: Tuple[float, float],
+                    min_overlap: float = 0.7) -> float:
+    """CornerNet's radius heuristic (reference src/lib/utils/image.py
+    `gaussian_radius`): the least of the three quadratic solutions."""
+    height, width = det_size
+    b1 = height + width
+    c1 = width * height * (1 - min_overlap) / (1 + min_overlap)
+    r1 = (b1 + np.sqrt(max(b1 ** 2 - 4 * c1, 0))) / 2
+    b2 = 2 * (height + width)
+    c2 = (1 - min_overlap) * width * height
+    r2 = (b2 + np.sqrt(max(b2 ** 2 - 16 * c2, 0))) / 2
+    a3 = 4 * min_overlap
+    b3 = -2 * min_overlap * (height + width)
+    c3 = (min_overlap - 1) * width * height
+    r3 = (b3 + np.sqrt(max(b3 ** 2 - 4 * a3 * c3, 0))) / 2
+    return max(0.0, min(r1, r2, r3))
+
+
+def draw_gaussian(heatmap: np.ndarray, center, radius: int) -> None:
+    """Splat an unnormalised 2D gaussian into `heatmap` [H, W] by maximum
+    (image.py `draw_umich_gaussian`)."""
+    diameter = 2 * radius + 1
+    sigma = diameter / 6
+    y, x = np.ogrid[-radius: radius + 1, -radius: radius + 1]
+    gaussian = np.exp(-(x * x + y * y) / (2 * sigma * sigma))
+    cx, cy = int(center[0]), int(center[1])
+    H, W = heatmap.shape
+    left, right = min(cx, radius), min(W - cx, radius + 1)
+    top, bottom = min(cy, radius), min(H - cy, radius + 1)
+    if right + left <= 0 or top + bottom <= 0:
+        return
+    masked = heatmap[cy - top: cy + bottom, cx - left: cx + right]
+    g = gaussian[radius - top: radius + bottom,
+                 radius - left: radius + right]
+    np.maximum(masked, g, out=masked)
+
+
+def lore_targets(cells, logic_axes, hw: Tuple[int, int],
+                 down_ratio: int = 4, max_cells: int = 128
+                 ) -> Dict[str, np.ndarray]:
+    """LORE's CenterNet training targets (reference
+    src/lib/datasets/sample/ctdet.py): cells [N, 4, 2] corners in page
+    pixels, logic_axes [N, 4] → hm [H/4, W/4, 2] (gaussian peaks at the
+    cell centres, channel 0, and at their corners, channel 1), wh_target
+    [K, 8] (corner offsets from the float centre), ct_inds and ct_mask
+    [K] (flat centre indices into the output map), logic_target [K, 4]
+    and gt_boxes [K, 8] (corners on the output map). A cell whose centre
+    falls off the map is left out."""
+    H, W = hw
+    ho, wo = H // down_ratio, W // down_ratio
+    hm = np.zeros((ho, wo, 2), np.float32)
+    wh = np.zeros((max_cells, 8), np.float32)
+    inds = np.zeros((max_cells,), np.int32)
+    mask = np.zeros((max_cells,), np.float32)
+    logic = np.zeros((max_cells, 4), np.float32)
+    boxes = np.zeros((max_cells, 8), np.float32)
+    for k, cell in enumerate(cells[:max_cells]):
+        c = np.asarray(cell, np.float32).reshape(4, 2) / down_ratio
+        ct = c.mean(axis=0)
+        cti = np.floor(ct).astype(np.int32)
+        if not (0 <= cti[0] < wo and 0 <= cti[1] < ho):
+            continue
+        h_box = float(c[:, 1].max() - c[:, 1].min())
+        w_box = float(c[:, 0].max() - c[:, 0].min())
+        radius = max(0, int(gaussian_radius((np.ceil(h_box),
+                                             np.ceil(w_box)))))
+        draw_gaussian(hm[..., 0], cti, radius)
+        for corner in c:
+            ci = np.floor(corner).astype(np.int32)
+            if 0 <= ci[0] < wo and 0 <= ci[1] < ho:
+                draw_gaussian(hm[..., 1], ci, max(1, radius // 2))
+        wh[k] = (c - ct[None]).reshape(-1)
+        inds[k] = cti[1] * wo + cti[0]
+        mask[k] = 1.0
+        logic[k] = np.asarray(logic_axes[k], np.float32)
+        boxes[k] = c.reshape(-1)
+    return {"hm": hm, "wh_target": wh, "ct_inds": inds, "ct_mask": mask,
+            "logic_target": logic, "gt_boxes": boxes}

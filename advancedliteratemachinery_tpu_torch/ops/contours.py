@@ -22,7 +22,17 @@ follow from them:
   OpenCV's 8-connected line iterator plus its scanline fill in 16.16 fixed
   point;
 - `contour_area`, `arc_length`: `cv2.contourArea`, `cv2.arcLength(...,
-  True)`.
+  True)`;
+- `polyline_window`: `cv2.polylines(mask, [pts], True, 1)` (thickness 1,
+  LINE_8) over a window of the mask, by `utils/visualization.py`'s
+  raster of cv2's line iterator;
+- `distance_transform`: `cv2.distanceTransform(src, DIST_L2, 3)` as
+  OpenCV's own code computes it: the 3x3 chamfer distance to the nearest
+  zero pixel, in 16.16 fixed point (steps 0.955 and 1.3693), by its two
+  raster passes. Pixels outside the image count as far, not as zero.
+
+`db_targets` (`models/db.py`) fills, outlines and measures each polygon
+with them for the DB training maps.
 """
 
 from __future__ import annotations
@@ -31,6 +41,9 @@ import math
 from typing import List, Tuple
 
 import numpy as np
+
+from advancedliteratemachinery_tpu_torch.utils.visualization import (
+    polyline_mask)
 
 # chain code s → (dx, dy): east, then counterclockwise (y grows down)
 _CODES = ((1, 0), (1, -1), (0, -1), (-1, -1), (-1, 0), (-1, 1), (0, 1),
@@ -474,3 +487,58 @@ def fill_poly_window(pts, shape: Tuple[int, int],
         mask[rows[:, 0] - wy0] |= (ok & (cols >= np.maximum(x1, 0))
                                    & (cols <= np.minimum(x2, W - 1)))
     return mask
+
+
+def polyline_window(pts, shape: Tuple[int, int],
+                    window: Tuple[int, int, int, int]) -> np.ndarray:
+    """`cv2.polylines(zeros(shape, uint8), [pts], True, 1)` (int points
+    [n, 2], thickness 1, LINE_8) restricted to `window` (y0, y1, x0, x1)
+    → uint8 [y1 - y0, x1 - x0]."""
+    y0, y1, x0, x1 = window
+    mask = polyline_mask(shape, np.asarray(pts).reshape(-1, 1, 2), 1)
+    return mask[y0:y1, x0:x1].astype(np.uint8)
+
+
+# cv2.distanceTransform's 3x3 L2 mask (getDistanceTransformMask, code 32):
+# the horizontal/vertical and the diagonal step in 16.16 fixed point,
+# cvRound(x · 2^16)
+_DIST_SHIFT = 16
+_HV = round(0.955 * (1 << _DIST_SHIFT))
+_DIAG = round(1.3693 * (1 << _DIST_SHIFT))
+_FAR = 2 ** 32 - 1 - _DIAG      # off the image, and the largest distance
+
+
+def _row_min(r: np.ndarray, step: np.ndarray) -> np.ndarray:
+    """t[j] = min(r[j], t[j − 1] + HV) from left to right, in closed form
+    (exact in integers): min over k ≤ j of r[k] + (j − k)·HV."""
+    return np.minimum.accumulate(r - step) + step
+
+
+def distance_transform(src: np.ndarray) -> np.ndarray:
+    """`cv2.distanceTransform(src, cv2.DIST_L2, 3)` for a uint8 [H, W]
+    image → float32 [H, W], as OpenCV's own `distanceTransform_3x3` computes
+    it: each nonzero pixel's 3x3 chamfer distance to the nearest zero
+    pixel, in unsigned 16.16 fixed point, by a forward raster pass (from
+    the row above and the pixel to the left) and a backward one (from the
+    row below and the pixel to the right), capped at UINT_MAX − DIAG (the
+    frame around the image, and the value of an image without a zero
+    pixel) and scaled by 2^-16 in float32. (A cv2 built with IPP takes
+    IPP's float32 transform by default, whose sums along a row round
+    otherwise: `cv2.ipp.setUseIPP(False)` gives OpenCV's.)"""
+    zero = np.asarray(src) == 0
+    H, W = zero.shape
+    t = np.full((H + 2, W + 2), _FAR, np.int64)
+    step = np.arange(W, dtype=np.int64) * _HV
+    for i in range(1, H + 1):
+        up = t[i - 1]
+        r = np.minimum(np.minimum(up[:-2] + _DIAG, up[1:-1] + _HV),
+                       up[2:] + _DIAG)
+        r[zero[i - 1]] = 0
+        t[i, 1:-1] = _row_min(r, step)
+    for i in range(H, 0, -1):
+        down = t[i + 1]
+        r = np.minimum(np.minimum(t[i, 1:-1], down[2:] + _DIAG),
+                       np.minimum(down[1:-1] + _HV, down[:-2] + _DIAG))
+        t[i, 1:-1] = _row_min(r[::-1], step)[::-1]      # right to left
+    out = np.minimum(t[1:-1, 1:-1], _FAR).astype(np.float32)
+    return out * np.float32(1.0 / (1 << _DIST_SHIFT))

@@ -18,6 +18,14 @@ runs the plain version below, which is also the kernel's reference on the
 card. `DeformConv2d` asks `supports_deform_conv` which of the two to
 take. The JAX package's windowed sampler, sparse correction and fallback
 exist only to make its TPU kernel exact and have no counterpart here.
+
+Under autograd `DeformConv2d` goes through `DeformConvFunction`, the port
+of the JAX `_dcn_dispatch` custom VJP: its forward is the kernel (or the
+plain version, by the same rule) run without recording a graph, and its
+backward recomputes `deform_conv2d_plain` on the saved inputs and returns
+that version's gradients for x, offsets, mask, weights and bias, as the
+JAX backward returns the VJP of its gather form. The kernel itself is
+never differentiated.
 """
 
 from __future__ import annotations
@@ -172,7 +180,7 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise ValueError("deform_conv kernel takes bf16 tensors; got "
                          f"{[t.dtype for t in tensors]}")
-    # the DCN backward comes with LORE training
+    # differentiable only through DeformConvFunction
     _kernels.refuse_grad(KERNEL, *tensors)
     if not all(t.is_contiguous() for t in (x, offsets, mask)):
         raise ValueError("x, offsets and mask must be contiguous")
@@ -194,6 +202,34 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor,
     return out
 
 
+class DeformConvFunction(torch.autograd.Function):
+    """A 3x3, stride-1, padding-1 DCN under autograd (JAX `_dcn_dispatch`
+    with its custom VJP). Forward: the kernel where `supports_deform_conv`
+    passes (the card, bf16), the plain version on other devices and
+    dtypes; a bf16 CUDA tensor the kernel does not take raises. Backward:
+    `deform_conv2d_plain` recomputed under grad on the saved inputs, in
+    the dtypes the forward saw, and its vector-Jacobian product."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, mask, weights, bias):
+        ctx.save_for_backward(x, offsets, mask, weights, bias)
+        if supports_deform_conv(x.shape, weights.shape, 1, 1, 1, x.dtype,
+                                x.device):
+            return deform_conv2d(x, offsets, mask, weights, bias)
+        if x.device.type == "cuda" and x.dtype == torch.bfloat16:
+            raise ValueError(
+                f"deform_conv kernel does not take x {tuple(x.shape)}, "
+                f"weights {tuple(weights.shape)}")
+        return deform_conv2d_plain(x, offsets, mask, weights, bias)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = deform_conv2d_plain(*inputs)
+        return torch.autograd.grad(out, inputs, grad)
+
+
 class DeformConv2d(nn.Module):
     """3x3, stride-1 DCN layer (JAX `DeformConv2d` at its defaults, the one
     form DLA's neck uses; reference DCN dcn_v2.py:147): a plain conv
@@ -201,10 +237,11 @@ class DeformConv2d(nn.Module):
     mask logits [18, 27) — then `deform_conv2d` samples and contracts where
     `supports_deform_conv` passes (the card, bf16), and
     `deform_conv2d_plain` otherwise (the CPU, f32), as the JAX dispatch
-    takes its Pallas kernel only where its check passes. Takes and returns
-    NHWC. Offsets and mask are cast to the compute dtype before sampling;
-    the bias is added in the output dtype. `weight` is OIHW, as
-    `engine/convert.py` carries the flax `kernel`."""
+    takes its Pallas kernel only where its check passes, through
+    `DeformConvFunction` (differentiable, as the JAX dispatch is). Takes
+    and returns NHWC. Offsets and mask are cast to the compute dtype
+    before sampling; the bias is added in the output dtype. `weight` is
+    OIHW, as `engine/convert.py` carries the flax `kernel`."""
 
     def __init__(self, in_ch: int, features: int,
                  policy: Policy = DEFAULT_POLICY):
@@ -220,9 +257,10 @@ class DeformConv2d(nn.Module):
         com = self.conv_offset_mask
         om = F.conv2d(x.permute(0, 3, 1, 2), com.weight.to(c),
                       com.bias.to(c), padding=1).permute(0, 2, 3, 1)
-        offsets = torch.stack([om[..., :9], om[..., 9:18]], dim=-1)
+        # the kernel reads offsets as (dy, dx) pairs and every map densely
+        offsets = torch.stack([om[..., :9], om[..., 9:18]],
+                              dim=-1).contiguous()
         mask = torch.sigmoid(om[..., 18:]).contiguous()
         w = self.weight.to(c).permute(2, 3, 1, 0)
-        conv = (deform_conv2d if supports_deform_conv(
-            x.shape, w.shape, 1, 1, 1, c, x.device) else deform_conv2d_plain)
-        return conv(x.contiguous(), offsets, mask, w, self.bias.to(c))
+        return DeformConvFunction.apply(x.contiguous(), offsets, mask, w,
+                                        self.bias.to(c))

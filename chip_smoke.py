@@ -200,7 +200,25 @@ Phases, each of which fails the run (non-zero exit) if it fails:
     set of the 8 table pages through `--model import:chip_smoke:
     table_html` (the docxchain phase's TableParsing, 16 K3 a page),
     scored by TEDS (1 on its own run; below 1 with one cell's text
-    changed a page).
+    changed a page);
+20. detector training (`detector_train`, after the MGP-STR train step and
+    `fit()`): LORE-TSR (the full `LoreConfig()`, DLA-34, offsets re-seeded)
+    at B=8 x 512² and DB (the full `DBConfig()`) at B=16 x 640² from
+    seeded random weights, each on one batch of the smoke's seeded table
+    and document pages written as PNG and read by `lore_batches` /
+    `db_batches` (a COCO table json of the cells; the words as COCO
+    `bezier_pts`): BatchNorm running statistics change in a train forward
+    and not in an eval one; LORE launches K3 16 times in a train forward
+    and never in its backward; at the neck's largest DCN, K3 inside
+    `DeformConvFunction` on poisoned memory against the plain version (a
+    half-pixel offset shift must fail the bound) and the Function's
+    backward bit-equal to autograd of the plain version (a gradient scaled
+    by 1 + 2^-6 must not be); 3 warm-up and 20 timed steps of the recipe
+    with a profile, the loss falling over them and not at lr = 0; then
+    `train lore`, `train db` and `train mgp_str` (3 steps, K1 and K4
+    counted, validated on an LMDB set) through the CLI, each saving a
+    checkpoint that a `--resume` run continues and that restores to the
+    saved parameters and buffers.
 
 Every checked kernel call (K1-K5, and each K4 call of the stress) runs on
 poisoned memory: what the caching allocator is about to hand the wrapper
@@ -250,8 +268,11 @@ from advancedliteratemachinery_tpu_torch.codecs.subword import (
     BpeCodec, WordpieceCodec)
 from advancedliteratemachinery_tpu_torch.core.precision import (
     DEFAULT_POLICY, FP32_POLICY)
+from advancedliteratemachinery_tpu_torch.data.coco_spotting import (
+    CocoSpottingDataset)
 from advancedliteratemachinery_tpu_torch.engine.batches import (
-    mgp_str_recipe_u8)
+    TableDataset, db_batches, db_recipe_u8, lore_batches, lore_recipe_u8,
+    mgp_str_recipe_u8, to_device)
 from advancedliteratemachinery_tpu_torch.engine.fit import (
     FitConfig, fit, restore_train_state)
 from advancedliteratemachinery_tpu_torch.engine.checkpoint import (
@@ -263,7 +284,8 @@ from advancedliteratemachinery_tpu_torch.engine.infer import (
 from advancedliteratemachinery_tpu_torch.engine.serving import (
     SpottingService)
 from advancedliteratemachinery_tpu_torch.engine.train import (
-    TrainState, make_mgp_str_train_step, make_optimizer, mgp_str_loss)
+    TrainState, make_mgp_str_train_step, make_optimizer, make_train_step,
+    mgp_str_loss)
 from advancedliteratemachinery_tpu_torch.models import layers
 from advancedliteratemachinery_tpu_torch.models.abinet import (
     ABINetVisionConfig)
@@ -294,7 +316,7 @@ from advancedliteratemachinery_tpu_torch.ops.cc_extract import (
     extract_boxes_device)
 from advancedliteratemachinery_tpu_torch.ops import deform_conv as dcn_module
 from advancedliteratemachinery_tpu_torch.ops.deform_conv import (
-    DeformConv2d, deform_conv2d, deform_conv2d_plain, supports_deform_conv)
+    DeformConv2d, deform_conv2d, deform_conv2d_plain)
 from advancedliteratemachinery_tpu_torch.ops.heatmap import (
     heatmap_peaks, sigmoid_clamped)
 from advancedliteratemachinery_tpu_torch.ops.image import (
@@ -1073,17 +1095,20 @@ def e2e_spotting(engine):
     return rec, counts
 
 
-def profile_steps(phase, steps, step_ms=None):
+def profile_steps(phase, steps, step_ms=None, host=True):
     """Device time by kernel name over a few steps (torch.profiler; each
     step ends in a copy to the host), and the share of their wall time in
     which no kernel or copy ran (the profiler's own overhead counts into
     the wall time). Given the unprofiled time of a step, also the share of
-    that time the device was not busy."""
+    that time the device was not busy. `host=False` traces the device
+    alone, for steps of many thousands of operations, whose host events
+    take the profiler minutes to gather."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host
+                                      else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for step in steps:
             step()
@@ -3521,6 +3546,451 @@ def fit_phase(host):
     return rec
 
 
+# ---------------- detector training (LORE and DB) ----------------
+
+LORE_TRAIN = (8, 512)         # lore_batches' default page size, B=8
+DB_TRAIN = (16, 640)          # db_batches' default page size, B=16
+DET_WARMUP, DET_STEPS = 3, 20
+DET_CONTROL_STEPS = 6         # steps of the lr = 0 control
+# the loss of one fixed batch falls: the mean of its last 5 steps below
+# the mean of its first 5 by at least this share; at lr = 0 it must not
+LOSS_FALL = 1e-2
+
+
+def table_dataset(tmp, n=4):
+    """`n` of the smoke's seeded table pages written as PNG, with a COCO
+    table json of their cells (`logic_axis` = row, row, col, col) →
+    (folder, json path)."""
+    cells = []
+    pages = table_pages(n, cells=cells)
+    images, anns = [], []
+    for i, (page, page_cells) in enumerate(zip(pages, cells)):
+        name = f"table{i}.png"
+        with open(os.path.join(tmp, name), "wb") as f:
+            f.write(png_bytes(page))
+        images.append({"id": i + 1, "file_name": name,
+                       "height": page.shape[0], "width": page.shape[1]})
+        for (x0, y0, x1, y1), (r, c) in page_cells:
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "segmentation": [x0, y0, x1, y0, x1, y1, x0, y1],
+                         "logic_axis": [r, r, c, c]})
+    path = os.path.join(tmp, "tables.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns}, f)
+    return tmp, path
+
+
+def spotting_dataset(tmp, n=4):
+    """`n` of the smoke's seeded document pages written as PNG, with a COCO
+    spotting json whose instances are their words: `bezier_pts` with
+    straight top and bottom curves over each word box → (folder, path)."""
+    words = []
+    pages = document_pages(n, words=words)
+    images, anns = [], []
+    for i, (page, boxes) in enumerate(zip(pages, words)):
+        name = f"doc{i}.png"
+        with open(os.path.join(tmp, name), "wb") as f:
+            f.write(png_bytes(page))
+        images.append({"id": i + 1, "file_name": name,
+                       "height": page.shape[0], "width": page.shape[1]})
+        for x, y, w, h in boxes:
+            top = [[x + w * t, y] for t in (0, 1 / 3, 2 / 3, 1)]
+            bottom = [[x + w * t, y + h] for t in (1, 2 / 3, 1 / 3, 0)]
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "bezier_pts": np.asarray(top + bottom).reshape(
+                             -1).tolist(), "rec": [1] * 25})
+    path = os.path.join(tmp, "spotting.json")
+    with open(path, "w") as f:
+        json.dump({"images": images, "annotations": anns}, f)
+    return tmp, path
+
+
+def dcn_inputs(model, batch, loss_fn):
+    """The inputs (x, offsets, mask, weights, bias) each DCN of `model`
+    hands DeformConvFunction in one train forward of `batch`, captured
+    by wrapping the Function's apply."""
+    seen = []
+    apply = dcn_module.DeformConvFunction.apply
+
+    def capture(*args):
+        seen.append([a.detach() for a in args])
+        return apply(*args)
+
+    dcn_module.DeformConvFunction.apply = capture
+    try:
+        model.train()
+        with torch.no_grad():
+            loss_fn(batch)
+    finally:                          # back to torch.autograd.Function's
+        del dcn_module.DeformConvFunction.apply
+    return seen
+
+
+def dcn_function_gates(inputs, gen):
+    """At the neck's largest DCN (by B·H·W·Cin), inside the Function: K3's
+    forward on poisoned memory against the plain version in f32 (control:
+    the plain version on offsets shifted by K3_CONTROL_SHIFTS[0] must
+    fail the same bound), and its backward bit-equal to autograd of
+    `deform_conv2d_plain` for the same upstream gradient (control: an
+    upstream gradient scaled by 1 + 2^-6 must not be)."""
+    x, off, mask, w, b = max(inputs, key=lambda a: a[0].numel())
+    Function = dcn_module.DeformConvFunction
+
+    def fwd():
+        with torch.no_grad():
+            return Function.apply(x, off, mask, w, b)
+
+    (out, in_poison), counts = counted(lambda: poisoned(fwd))
+    f32 = [t.float() for t in (x, off, mask, w, b)]
+    want = deform_conv2d_plain(*f32)
+    rms = want.pow(2).mean().sqrt().item()
+
+    def rel(got):
+        e = (got.float() - want).abs()
+        return (e.pow(2).mean().sqrt().item() / rms, e.max().item() / rms)
+
+    shifted = deform_conv2d_plain(f32[0], f32[1] + K3_CONTROL_SHIFTS[0],
+                                  *f32[2:])
+    err, ctl = rel(out), rel(shifted)
+    g = torch.randn(out.shape, generator=gen, device="cuda").bfloat16()
+
+    def grads(fn, g, launches=None):
+        ins = [t.detach().clone().requires_grad_() for t in (x, off, mask,
+                                                              w, b)]
+        y = fn(*ins)
+        _, n = counted(lambda: y.backward(g))
+        if launches is not None:
+            launches.update(n)
+        return [t.grad for t in ins]
+
+    counts_bwd = {}
+    got_g = grads(Function.apply, g, counts_bwd)
+    plain_g = grads(deform_conv2d_plain, g)
+    again_g = grads(deform_conv2d_plain, g)
+    ctl_g = grads(deform_conv2d_plain, g * (1 + 2 ** -6))
+    rec = {"phase": "detector_train_dcn", "shape": list(x.shape),
+           "cout": w.shape[-1], "launches_fwd": counts,
+           "launches_bwd": counts_bwd, "poisoned": in_poison,
+           "rel_rms_err": err[0], "max_err_over_rms": err[1],
+           "tol": [K3_RMS_TOL, K3_MAX_TOL],
+           "control_shift": K3_CONTROL_SHIFTS[0],
+           "control_rel_rms_err": ctl[0], "control_max_err_over_rms": ctl[1],
+           "bwd_bit_equal": [torch.equal(a, p) for a, p in zip(got_g,
+                                                               plain_g)],
+           "plain_bwd_repeat_bit_equal": [torch.equal(a, p) for a, p in
+                                          zip(again_g, plain_g)],
+           "control_bwd_bit_equal": [torch.equal(a, p) for a, p in
+                                     zip(ctl_g, plain_g)]}
+    emit(rec)
+    # the forward twice (the allocator plan, then on poisoned memory), the
+    # backward never
+    require(counts == {"deform_conv": 2} and counts_bwd == {}
+            and in_poison and err[0] <= K3_RMS_TOL and err[1] <= K3_MAX_TOL,
+            f"K3 inside the Function disagrees: {rec}")
+    require(ctl[0] > K3_RMS_TOL or ctl[1] > K3_MAX_TOL,
+            f"the shifted-offset control passed the K3 bound: {rec}")
+    require(all(rec["bwd_bit_equal"]),
+            f"the Function's backward is not plain autograd's: {rec}")
+    require(not all(rec["control_bwd_bit_equal"]),
+            f"the scaled-gradient control was bit-equal: {rec}")
+    return rec
+
+
+def dcn_backward_at_640(inputs, gen):
+    """The Function's forward (K3) and plain backward at the neck's largest
+    DCN of a 640² page (`train lore --image-size 640`: 160² maps), B as in
+    the smoke: seeded inputs in the captured tensors' dtypes and scales,
+    the captured weights; its ms a step (1 warm-up, 3 timed, CUDA events)
+    and the peak memory it allocates."""
+    x, off, mask, w, b = max(inputs, key=lambda a: a[0].numel())
+    B, _, _, C = x.shape
+    hw = (B, 160, 160)
+
+    def like(t, shape):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * t.float().std() + t.float().mean()).to(t.dtype)
+
+    big = [like(x, hw + (C,)), like(off, hw + off.shape[3:]),
+           like(mask, hw + mask.shape[3:]).clamp(0, 1)]
+    g = torch.randn(hw + (w.shape[-1],), generator=gen,
+                    device="cuda").to(x.dtype)
+
+    def step():
+        ins = [t.clone().requires_grad_() for t in big + [w, b]]
+        dcn_module.DeformConvFunction.apply(*ins).backward(g)
+        return [t.grad for t in ins]
+
+    step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(3):
+        grads = step()
+    end.record()
+    torch.cuda.synchronize()
+    rec = {"phase": "detector_train_dcn_640", "shape": list(big[0].shape),
+           "cout": w.shape[-1], "dtype": str(x.dtype),
+           "fwd_bwd_ms": start.elapsed_time(end) / 3,
+           "peak_mib": (torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+           "grads_finite": all(bool(t.isfinite().all()) for t in grads)}
+    emit(rec)
+    require(rec["grads_finite"], f"the 640² DCN backward: {rec}")
+    return rec
+
+
+def train_steps(model, loss_fn, tx, batch, n, timed=False):
+    """`n` steps of make_train_step on one fixed batch → (losses, ms per
+    step over the timed ones, after DET_WARMUP more untimed when
+    `timed`)."""
+    state = TrainState.create(model, tx)
+    step = make_train_step(loss_fn, state)
+    losses = []
+    for _ in range(DET_WARMUP if timed else 0):
+        losses.append(step(batch)["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        losses.append(step(batch)["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    return [v.item() for v in losses], ms, step
+
+
+def falls(losses):
+    return bool(np.mean(losses[-5:])
+                < (1 - LOSS_FALL) * np.mean(losses[:5]))
+
+
+def bn_stats_gate(model, loss_fn, batch, name):
+    """The BatchNorm running statistics change in a train forward and not
+    in an eval one (each reading the other's control)."""
+    def stats():
+        return torch.cat([b.detach().float().flatten()
+                          for n, b in model.named_buffers()
+                          if n.endswith(("running_mean", "running_var"))])
+
+    s0 = stats()
+    model.eval()
+    with torch.no_grad():
+        model(batch["images"].to(model.policy.compute_dtype))
+    s1 = stats()
+    model.train()
+    with torch.no_grad():
+        loss_fn(batch)
+    s2 = stats()
+    model.eval()
+    rec = {"eval_changed": not torch.equal(s0, s1),
+           "train_changed": not torch.equal(s1, s2)}
+    require(not rec["eval_changed"] and rec["train_changed"],
+            f"{name}: BatchNorm running statistics {rec}")
+    return rec
+
+
+def detector_case(name, model, loss_fn, tx, batch, dcn=False, gen=None):
+    """One detector's gates and timings (see detector_train_phase)."""
+    B = batch["images"].shape[0]
+    t0 = time.perf_counter()
+    split = {}
+
+    def lap(what):
+        torch.cuda.synchronize()
+        split[what] = time.perf_counter() - t0 - sum(split.values())
+
+    bn = bn_stats_gate(model, loss_fn, batch, name)
+    lap("bn_gate")
+    if dcn:
+        inputs = dcn_inputs(model, batch, loss_fn)
+        require(len(inputs) == 16, f"{name}: {len(inputs)} DCN layers")
+        dcn_rec = dcn_function_gates(inputs, gen)
+        dcn_rec["at_640"] = dcn_backward_at_640(inputs, gen)
+        del inputs
+        lap("dcn_gates")
+    # launches of one step: the forward, then the backward
+    model.train()
+    loss, fwd = counted(lambda: loss_fn(batch)[0])
+    _, bwd = counted(loss.backward)
+    model.zero_grad(set_to_none=True)
+    del loss
+    lap("counted_step")
+    start = copy.deepcopy(model.state_dict())
+    (losses, step_ms, step), counts = counted(
+        lambda: train_steps(model, loss_fn, tx, batch, DET_STEPS, True))
+    n_steps = DET_WARMUP + DET_STEPS
+    lap("timed_steps")
+    # LORE's step runs ~10^4 kernels: one traced step, the device's alone
+    profile_steps(f"{name}_train_profile",
+                  [lambda: step(batch)["loss"].item()] * (1 if dcn else 3),
+                  step_ms=step_ms, host=not dcn)
+    del step
+    lap("profile")
+    model.load_state_dict(start)
+    frozen = dataclasses.replace(tx, lr=0.0)
+    ctl, _, _ = train_steps(model, loss_fn, frozen, batch, DET_CONTROL_STEPS)
+    model.load_state_dict(start)
+    model.zero_grad(set_to_none=True)
+    lap("lr0_control")
+    rec = {"phase": f"{name}_train", "batch": B,
+           "page": list(batch["images"].shape[1:3]), "step_ms": step_ms,
+           "samples_per_s": B * 1e3 / step_ms,
+           "launches_forward": fwd, "launches_backward": bwd,
+           "launches_per_step": {k: v / n_steps for k, v in counts.items()},
+           "losses": losses, "falls": falls(losses[DET_WARMUP:]),
+           "lr0_losses": ctl, "lr0_falls": falls(ctl),
+           "bn_stats": bn, "seconds": split, "peak_mem_gb":
+           torch.cuda.max_memory_allocated() / 1e9}
+    emit(rec)
+    require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    require(rec["falls"] and not rec["lr0_falls"],
+            f"{name}: the loss must fall, and not at lr = 0: {rec}")
+    if dcn:
+        require(fwd == {"deform_conv": 16} and bwd == {}
+                and counts == {"deform_conv": 16 * n_steps},
+                f"{name}: K3 launches {fwd} forward, {bwd} backward, "
+                f"{counts} over {n_steps} steps; expected 16, 0, 16 a step")
+        rec["dcn"] = dcn_rec
+    else:
+        require(fwd == {} and bwd == {} and counts == {},
+                f"{name}: launches {fwd}, {bwd}, {counts}; expected none")
+    return rec
+
+
+def cli_train_resume(patched, argv, ckpt, model_fn, name):
+    """`train` through the CLI for 2 steps (a checkpoint at step 2), then
+    `--resume` to 3: the resumed run takes one step, and step_2 restored
+    into a fresh model and optimiser gives the saved parameters and
+    buffers, which the fresh model's own differ from (the control)."""
+    out = patched.run(argv + ["--steps", "2", "--ckpt-dir", ckpt])
+    first = json.loads(out.strip().splitlines()[-1])
+    out = patched.run(argv + ["--steps", "3", "--ckpt-dir", ckpt,
+                              "--resume"])
+    resumed = json.loads(out.strip().splitlines()[-1])
+    saved = torch.load(os.path.join(ckpt, "step_2", "state.pt"),
+                       map_location="cuda", weights_only=True)["params"]
+    fresh = TrainState.create(model_fn(), make_optimizer())
+    control = any(not torch.equal(v, saved[k])
+                  for k, v in fresh.model.state_dict().items()
+                  if v.is_floating_point())
+    restore_train_state(os.path.join(ckpt, "step_2"), fresh)
+    equal = all(torch.equal(v, saved[k])
+                for k, v in fresh.model.state_dict().items())
+    buffers = sum(k.endswith("running_var") for k in saved)
+    rec = {"model": name, "first": first, "resumed": resumed,
+           "restored_equal": equal, "control_differs": control,
+           "running_var_buffers": buffers,
+           "kept": sorted(os.listdir(ckpt))}
+    require(first["steps_run"] == 2 and resumed["steps_run"] == 1
+            and equal and control, f"train {name} resume: {rec}")
+    return rec
+
+
+def str_lmdb(tmp, n=48):
+    """An LMDB of `n` seeded word crops (PNG) with random lowercase labels
+    through the port's `create_str_lmdb`."""
+    from advancedliteratemachinery_tpu_torch.data.lmdb_writer import (
+        create_str_lmdb)
+    rng = np.random.default_rng(41)
+    gt = os.path.join(tmp, "gt.txt")
+    with open(gt, "w") as f:
+        for i in range(n):
+            path = os.path.join(tmp, f"w{i}.png")
+            with open(path, "wb") as g:
+                g.write(png_bytes(word_crop(rng, 32, int(rng.integers(
+                    48, 160)))))
+            label = "".join(rng.choice(list("abcdefghij"),
+                                       int(rng.integers(3, 8))))
+            f.write(f"{path}\t{label}\n")
+    out = os.path.join(tmp, "set")
+    require(create_str_lmdb(gt, out) == n, "create_str_lmdb dropped crops")
+    return out
+
+
+def detector_train_phase(card):
+    """LORE-TSR (the full LoreConfig, DLA-34, B=8 pages of 512²) and DB
+    (the full DBConfig, B=16 pages of 640²) trained on the card from seeded
+    random weights, on batches of the smoke's seeded pages through
+    `lore_batches` / `db_batches` and the recipes: the gates of
+    `detector_case`; then `train lore`, `train db` and `train mgp_str`
+    through the CLI with checkpoints and a resume."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    out = {"card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        for d in ("t", "d", "s"):
+            os.makedirs(os.path.join(tmp, d))
+        tables = table_dataset(os.path.join(tmp, "t"))
+        docs = spotting_dataset(os.path.join(tmp, "d"))
+        out["datasets_s"] = time.perf_counter() - t0
+        B, size = LORE_TRAIN
+        tb = time.perf_counter()
+        host = next(lore_batches(TableDataset(*tables), B,
+                                 image_hw=(size, size)))
+        lore_batch_s = time.perf_counter() - tb
+        tb = time.perf_counter()
+        lore = LORE(LoreConfig(), seed=0)
+        reseed_offsets(lore, seed=7)
+        build_s = time.perf_counter() - tb
+        loss_fn, tx = lore_recipe_u8(lore)
+        rec = detector_case("lore", lore, loss_fn, tx,
+                            to_device(host, "cuda"), dcn=True, gen=gen)
+        rec["batch_build_s"], rec["model_build_s"] = lore_batch_s, build_s
+        out["lore"] = rec
+        del lore, loss_fn, host
+        torch.cuda.empty_cache()
+
+        B, size = DB_TRAIN
+        tb = time.perf_counter()
+        host = next(db_batches(CocoSpottingDataset(*docs), B,
+                               image_hw=(size, size)))
+        db_batch_s = time.perf_counter() - tb
+        require(host["gt_prob"].max() == 1.0, "DB targets are empty")
+        tb = time.perf_counter()
+        db = DBDetector(DBConfig(), seed=1)
+        build_s = time.perf_counter() - tb
+        loss_fn, tx = db_recipe_u8(db)
+        rec = detector_case("db", db, loss_fn, tx, to_device(host, "cuda"))
+        rec["batch_build_s"], rec["model_build_s"] = db_batch_s, build_s
+        out["db"] = rec
+        del db, loss_fn, host
+        torch.cuda.empty_cache()
+
+        patched = PatchedCLI()
+        common = ["--batch-size", "2", "--log-interval", "1",
+                  "--save-interval", "2"]
+        tc = time.perf_counter()
+        out["cli_lore_start_s"] = tc - t0
+        out["cli_lore"] = cli_train_resume(
+            patched, ["train", "lore", "--train-data", tables[1],
+                      "--img-root", tables[0], "--image-size", "512"]
+            + common, os.path.join(tmp, "ckpt_lore"),
+            lambda: LORE(LoreConfig(), seed=0), "lore")
+        out["cli_db"] = cli_train_resume(
+            patched, ["train", "db", "--train-data", docs[1],
+                      "--img-root", docs[0], "--image-size", "640"]
+            + common, os.path.join(tmp, "ckpt_db"),
+            lambda: DBDetector(DBConfig(), seed=0), "db")
+        out["cli_mgp_start_s"] = time.perf_counter() - t0
+        lmdb = str_lmdb(os.path.join(tmp, "s"))
+        res, counts = counted(lambda: patched.run(
+            ["train", "mgp_str", "--train-data", lmdb, "--val-data", lmdb,
+             "--batch-size", "8", "--steps", "3", "--val-interval", "3",
+             "--log-interval", "1", "--save-interval", "3",
+             "--batch-max-length", "10",
+             "--ckpt-dir", os.path.join(tmp, "ckpt_mgp")]))
+        mgp = json.loads(res.strip().splitlines()[-1])
+        out["cli_mgp_str"] = {"result": mgp, "launches": counts}
+        require(mgp["steps_run"] == 3 and mgp["final_val"] is not None
+                and counts.get("fused_qkv_attention_bwd") == 36
+                and counts.get("fused_qkv_attention", 0) >= 36,
+                f"train mgp_str: {out['cli_mgp_str']}")
+        out["cli_s"] = time.perf_counter() - tc
+    out["phase"] = "detector_train"
+    out["seconds"] = time.perf_counter() - t0
+    emit({k: v for k, v in out.items() if k not in ("lore", "db")})
+    return out
+
+
 # ---------------- the document pipelines (docxchain) ----------------
 
 DOC_PAGES = 8
@@ -3594,18 +4064,25 @@ def word_crop(rng, h, w):
     return crop.astype(np.uint8)
 
 
-def document_pages(n, hw=DOC_HW, seed=0):
+def document_pages(n, hw=DOC_HW, seed=0, words=None):
     """`n` seeded pages: paper noise, a title of 2-3 large words, then two
-    columns of 5-7 lines of 2-4 words."""
+    columns of 5-7 lines of 2-4 words. Given a list, `words` gets each
+    page's word boxes (x, y, w, h)."""
     rng = np.random.default_rng(seed)
     H, W = hw
     pages = []
     for _ in range(n):
         page = rng.integers(228, 256, (H, W, 3), dtype=np.uint8)
+        boxes = []
+
+        def word(y, x, h, w):
+            _word(page, rng, y, x, h, w)
+            boxes.append((x, y, w, h))
+
         x = int(W * 0.08)
         for _ in range(int(rng.integers(2, 4))):
             w = int(rng.integers(W // 8, W // 5))
-            _word(page, rng, int(H * 0.06), x, int(H * 0.04), w)
+            word(int(H * 0.06), x, int(H * 0.04), w)
             x += w + int(W * 0.05)
         col_w = W // 2 - int(W * 0.1)
         for c in range(2):
@@ -3617,10 +4094,12 @@ def document_pages(n, hw=DOC_HW, seed=0):
                     w = int(rng.integers(W // 16, W // 8))
                     if x + w > x0 + col_w:
                         break
-                    _word(page, rng, y, x, int(H * 0.022), w)
+                    word(y, x, int(H * 0.022), w)
                     x += w + int(W * 0.04)
                 y += int(H * 0.07)
         pages.append(page)
+        if words is not None:
+            words.append(boxes)
     return np.stack(pages)
 
 
@@ -3645,9 +4124,10 @@ def dense_page(hw=DOC_HW, seed=3):
     return page
 
 
-def table_pages(n, hw=DOC_HW, seed=1):
+def table_pages(n, hw=DOC_HW, seed=1, cells=None):
     """`n` seeded pages, each a ruled table (light gray lines) of 5-8 rows
-    by 4-6 columns with one word a cell, under a caption of 2 words."""
+    by 4-6 columns with one word a cell, under a caption of 2 words. Given
+    a list, `cells` gets each page's cells ((x0, y0, x1, y1), (row, col))."""
     rng = np.random.default_rng(seed)
     H, W = hw
     pages = []
@@ -3671,6 +4151,10 @@ def table_pages(n, hw=DOC_HW, seed=1):
                       x0 + c * cw + int((cw - w) * rng.uniform(0.2, 0.8)),
                       int(H * 0.022), w)
         pages.append(page)
+        if cells is not None:
+            cells.append([((x0 + c * cw, y0 + r * rh, x0 + (c + 1) * cw,
+                            y0 + (r + 1) * rh), (r, c))
+                          for r in range(rows) for c in range(cols)])
     return np.stack(pages)
 
 
@@ -4687,12 +5171,12 @@ def docxchain_phase(card):
                 head_features(lore.backbone, x, "hm"), f32_feat))
             # the same bf16 model with its DCNs on the plain version, which
             # has K3's rounding points: bf16's own error here
-            dcn_module.supports_deform_conv = lambda *a: False
+            dcn_module.deform_conv2d = deform_conv2d_plain
             try:
                 worst(bf["rel_rms"], "table_features_plain_dcn", rel_rms(
                     head_features(lore.backbone, x, "hm"), f32_feat))
             finally:
-                dcn_module.supports_deform_conv = supports_deform_conv
+                dcn_module.deform_conv2d = deform_conv2d
             # controls: K3 fed offsets shifted by a fraction of a pixel
             for shift in K3_CONTROL_SHIFTS:
                 dcn_module.deform_conv2d = (
@@ -6060,6 +6544,9 @@ def main() -> int:
     _, train_counts, host = train_step_phase()
     fit_phase(host)
     mark("train_fit")
+    detector = detector_train_phase(smi)
+    torch.cuda.empty_cache()
+    mark("detector_train")
     emit({"phase": "timeline", "seconds_since_start": timeline})
     torch.cuda.empty_cache()
     print(smi, flush=True)      # again beside the summary, for short tails
@@ -6093,7 +6580,9 @@ def main() -> int:
          "bound_ms": k3["bound_ms"], "bound_by": k3["bound_by"],
          "library_ms": k3["library_ms"],
          "library": "F.conv2d: the same layer at zero offsets, unit mask",
-         "shape": "B=8 H=W=192 Cin=64 Cout=64"},
+         "shape": "B=8 H=W=192 Cin=64 Cout=64",
+         "lore_train_launches_per_step":
+             detector["lore"]["launches_per_step"]["deform_conv"]},
         {"name": "fused_qkv_attention_bwd", "route": "cuda",
          "source": BWD_SRC,
          "replaces": "advancedliteratemachinery_tpu/ops/attention.py:165",

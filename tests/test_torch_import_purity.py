@@ -4,8 +4,8 @@ card's machine has none of them), and importing it builds no kernel: every modul
 `advancedliteratemachinery_tpu_torch` and the module-level code of
 `chip_smoke.py` and the root's measuring scripts (`k4_repeats.py`,
 `kernel_ab.py`, `collect_profile.py`) import in a process where all of
-them are blocked, the CLI's evaluation and OmniParser task commands parse
-there, and `models` lists the registries there."""
+them are blocked, the CLI's evaluation, OmniParser task and `train` commands
+parse there, and `models` lists the registries there."""
 
 import pathlib
 import subprocess
@@ -37,7 +37,10 @@ def test_port_imports_without_jax():
               "eval.det_map", "eval.lore_metrics", "ops.nms", "ops.image",
               "data.pubtabnet", "models.lister_baselines",
               "utils.profiling", "core.registry", "codecs.seq_codec",
-              "utils.visualization", "pipelines.latex_ocr"):
+              "utils.visualization", "pipelines.latex_ocr",
+              "data.coco_spotting", "engine.train_extras",
+              "engine.recipes", "engine.batches", "engine.fit",
+              "models.db", "models.lore", "models.dla"):
         assert f"{PKG}.{m}" in modules
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -50,7 +53,8 @@ def test_port_imports_without_jax():
         from {PKG} import cli
         for cmd in ("eval", "create-lmdb", "ccocr-eval", "ccocr-collect",
                     "eval-det", "models", "vie", "table-html",
-                    "table-eval", "read", "structurize", "table"):
+                    "table-eval", "read", "structurize", "table",
+                    "train"):
             try:
                 cli.main([cmd, "--help"])
             except SystemExit as e:

@@ -27,7 +27,7 @@ from advancedliteratemachinery_tpu_torch.ops.attention import (
     fused_qkv_attention_bwd_plain, fused_qkv_attention_plain, mha_short_seq,
     mha_short_seq_plain)
 from advancedliteratemachinery_tpu_torch.ops.deform_conv import (
-    deform_conv2d, deform_conv2d_plain)
+    DeformConv2d, DeformConvFunction, deform_conv2d, deform_conv2d_plain)
 from advancedliteratemachinery_tpu_torch.ops.vocab_decode import (
     matmul_greedy_decode, matmul_greedy_decode_plain)
 
@@ -307,6 +307,49 @@ def test_kernels_without_backward_refuse_grad(gen):
         deform_conv2d(x, off, mask, wt.requires_grad_(), b)
     with torch.no_grad():
         deform_conv2d(x, off, mask, wt, b)
+
+
+@pytest.mark.parametrize("B,H,W,Cin,Cout", [(2, 13, 29, 40, 72),
+                                             (2, 48, 48, 64, 64)])
+def test_deform_conv_function_forward_and_backward(gen, B, H, W, Cin, Cout):
+    """DeformConvFunction under grad: the forward launches K3 once and
+    agrees with the plain version; the backward launches nothing and is
+    bit-equal to autograd of `deform_conv2d_plain` on the same bf16
+    inputs for the same upstream gradient."""
+    ins = _dcn_inputs(gen, B, H, W, Cin, Cout, 2.0)
+    g = torch.randn(B, H, W, Cout, generator=gen, device="cuda").bfloat16()
+    got = [t.clone().requires_grad_() for t in ins]
+    before = _kernels.LAUNCHES["deform_conv"]
+    out = DeformConvFunction.apply(*got)
+    assert _kernels.LAUNCHES["deform_conv"] == before + 1
+    out.backward(g)
+    assert _kernels.LAUNCHES["deform_conv"] == before + 1
+    want = deform_conv2d_plain(*[t.float() for t in ins])
+    rms = want.pow(2).mean().sqrt()
+    err = (out.float() - want).abs()
+    assert (err.pow(2).mean().sqrt() / rms).item() <= 5e-3
+    assert (err.max() / rms).item() <= 3e-2
+    plain = [t.clone().requires_grad_() for t in ins]
+    deform_conv2d_plain(*plain).backward(g)
+    for a, b in zip(got, plain):
+        assert a.grad.dtype == torch.bfloat16
+        assert torch.equal(a.grad, b.grad)
+
+
+def test_deform_conv_module_launches_or_raises_under_grad(gen):
+    """DeformConv2d in bf16 on the card under grad goes through K3, and a
+    bf16 CUDA input the kernel does not take raises rather than taking the
+    plain version."""
+    layer = DeformConv2d(8, 16, DEFAULT_POLICY).cuda()
+    x = torch.randn(2, 12, 12, 8, generator=gen,
+                    device="cuda").bfloat16().requires_grad_()
+    before = _kernels.LAUNCHES["deform_conv"]
+    layer(x).float().sum().backward()
+    assert _kernels.LAUNCHES["deform_conv"] == before + 1
+    assert x.grad is not None and layer.weight.grad is not None
+    ins = _dcn_inputs(gen, 1, 6, 6, 8, 8, 1.0)
+    with pytest.raises(ValueError):
+        DeformConvFunction.apply(*ins[:3], ins[3][:, :2], ins[4])
 
 
 class _PlainAttention(torch.autograd.Function):

@@ -8,12 +8,16 @@ On the JAX side the DLA's `DeformConv2d` is swapped, in this file only, for
 a subclass whose `window_radius` defaults to None: the gather formulation,
 which the JAX package states and `tests/test_deform_window.py` proves is the
 same function as the windowed dispatch, and which compiles in seconds
-instead of minutes. `tests/test_torch_deform_conv.py` holds the port
-against the windowed dispatch itself.
+instead of minutes; and in its im2col form (`deform_conv2d`'s
+`per_tap=False`: one gather of all taps and one contraction, the same
+function again), which compiles in a quarter of the per-tap form's time.
+`tests/test_torch_deform_conv.py` holds the port against the windowed
+dispatch itself, and against the per-tap form.
 """
 
 import copy
 import dataclasses
+import functools
 import os
 from typing import Optional
 
@@ -24,6 +28,7 @@ import pytest
 import torch
 
 import advancedliteratemachinery_tpu.models.dla as jdla
+import advancedliteratemachinery_tpu.ops.deform_conv as jdcn
 import golden_common as G
 import test_dla_import as DLA_IMPORT
 from advancedliteratemachinery_tpu.core.precision import FP32_POLICY as J_FP32
@@ -51,6 +56,14 @@ MAP_TOL = dict(rtol=1e-5, atol=1e-5)   # of each map's max; f32 sum order
 
 class GatherDeformConv2d(JDeformConv2d):
     window_radius: Optional[int] = None
+
+
+def use_gather_dcn(mp):
+    """Within MonkeyPatch `mp`, the JAX DLA's DCNs in the gather
+    formulation, im2col form."""
+    mp.setattr(jdla, "DeformConv2d", GatherDeformConv2d)
+    mp.setattr(jdcn, "deform_conv2d",
+               functools.partial(jdcn.deform_conv2d, per_tap=False))
 
 
 def port_config(j):
@@ -106,7 +119,7 @@ def lore_pair():
         np.float32)
     tm = LORE(port_config(J_TINY_LORE), policy=FP32_POLICY, device="cpu")
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jdla, "DeformConv2d", GatherDeformConv2d)
+        use_gather_dcn(mp)
         jm = JLORE(J_TINY_LORE, policy=J_FP32)
         variables = random_lore_tree(flax_zeros(tm))
         want, state = jax.jit(lambda v, x: jm.apply(
@@ -272,7 +285,7 @@ def test_golden_replay_into_port_dlaseg(monkeypatch):
     `jax.eval_shape`, carried over by engine/convert) must give exactly the
     same state dict. (Tracing the windowed DCN only for its shapes takes
     seconds; the gather form has the same ones.)"""
-    monkeypatch.setattr(jdla, "DeformConv2d", GatherDeformConv2d)
+    use_gather_dcn(monkeypatch)
     pth = os.path.join(G.GOLDEN_DIR, "lore.pth")
     data = np.load(os.path.join(G.GOLDEN_DIR, "lore.npz"))
     M = DLA_IMPORT
